@@ -1,0 +1,495 @@
+#!/usr/bin/env python3
+"""Drives the port's main path once on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+The path (SURVEY.md §3.3): `dyno gputrace` reaches the C++ daemon over
+TCP JSON-RPC, the daemon hands the config to the in-process client shim
+(dynolog_tpu_torch.client) over the UNIX-datagram fabric, the shim runs
+torch.profiler on the training thread, and the Chrome trace plus
+dynolog_manifest.json land in the trace dir — while the shim pushes
+per-device telemetry and the flagship transformer train step (bench.py's
+configuration, bf16, batch 8 x 512) calls step() every iteration.
+
+Phases, one line each; any failure raises, so the script exits non-zero
+without the final line:
+
+  env        card name and power limit (nvidia-smi), torch and CUDA
+  build      scripts/build.sh builds the daemon and dyno from the checkout
+  daemon     started on --port 0 with fabric sockets in a temp dir
+  overhead   ms/step of the flagship step with no client, with a client
+             that only sees step(), with the full client (phase
+             annotations, metrics every 1 s), and with the full client
+             against a daemon that samples no per-phase CPU, in rotating
+             windows
+  register   the client registers with platform "gpu"
+  telemetry  a pushed record carries the GPU and NVML keys
+  gputrace   `dyno gputrace --duration_ms 500`: CUDA kernels, the training
+             thread's aten:: ops, the manifest
+  iteration  a 5-iteration capture armed over RPC, same checks
+  latency    3 traced trials split into rpc->config, config->start,
+             start->stop, stop->artifact
+  parity     the tiny model in float32 (TF32 off) on the GPU against the
+             same weights on the CPU, max abs <= 1e-4
+  training   the flagship loss is finite and fell over the run
+
+The port has no hand-written kernel (the JAX package has no Pallas
+kernel), so the kernel table it prints is empty. The last line is the
+device record `{"ok": true, "device": {...}}`.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import faulthandler
+import glob
+import json
+import logging
+import math
+import os
+import pathlib
+import signal
+import statistics
+import subprocess
+import sys
+import tempfile
+import threading
+import time
+
+import torch
+
+from dynolog_tpu_torch.client import DynologClient
+from dynolog_tpu_torch.models.train import make_train_step, run_annotated_loop
+from dynolog_tpu_torch.models.transformer import ModelConfig, Transformer
+from dynolog_tpu_torch.utils.procutil import wait_for_stderr
+from dynolog_tpu_torch.utils.rpc import DynoClient
+
+REPO = pathlib.Path(__file__).resolve().parent
+
+# bench.py:make_step's flagship configuration (~34.1 M parameters).
+FLAGSHIP = ModelConfig(vocab_size=8192, d_model=512, n_layers=8, n_heads=8,
+                       d_ff=1408, max_seq_len=512,
+                       compute_dtype=torch.bfloat16, remat=True)
+BATCH, SEQ = 8, 512
+JOB = "chip_smoke"
+OVERHEAD_ROUNDS = 8
+TRACE_MS = 500
+LATENCY_TRIALS = 3
+PARITY_ATOL = 1e-4
+QUIET = "dynolog_tpu_no_phase_cpu"
+
+
+class SmokeError(RuntimeError):
+    pass
+
+
+def check(cond, what):
+    if not cond:
+        raise SmokeError(what)
+
+
+def wait_for(predicate, timeout_s, what, interval_s=0.05):
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        value = predicate()
+        if value:
+            return value
+        time.sleep(interval_s)
+    # Where every thread is when a phase stalls: the shim's work runs on
+    # the training, poll and capture threads.
+    faulthandler.dump_traceback(all_threads=True)
+    raise SmokeError(f"timed out after {timeout_s:.0f}s waiting for {what}")
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=30)
+    return out.stdout.strip().splitlines()[0]
+
+
+def build_native() -> tuple[pathlib.Path, pathlib.Path]:
+    t0 = time.monotonic()
+    out = subprocess.run([str(REPO / "scripts" / "build.sh")],
+                         capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        raise SmokeError(f"native build failed:\n{out.stdout[-2000:]}\n"
+                         f"{out.stderr[-4000:]}")
+    for sub in ("build", "build-manual"):
+        d = REPO / "native" / sub
+        if (d / "dynolog_tpu_daemon").exists() and (d / "dyno").exists():
+            print(f"build: {d.relative_to(REPO)} in "
+                  f"{time.monotonic() - t0:.1f}s", flush=True)
+            return d / "dynolog_tpu_daemon", d / "dyno"
+    raise SmokeError("build produced no dynolog_tpu_daemon/dyno")
+
+
+def start_daemon(daemon_bin, *flags):
+    """The daemon on --port 0 with fabric sockets in
+    $DYNOLOG_TPU_SOCKET_DIR and its collectors idle. Returns (proc, port);
+    stop it with stop_daemon."""
+    proc = subprocess.Popen(
+        [str(daemon_bin), "--port", "0",
+         "--kernel_monitor_interval_s", "3600",
+         "--tpu_monitor_interval_s", "3600", *flags],
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    m, buf = wait_for_stderr(proc, r"rpc: listening on port (\d+)")
+    if m is None:
+        stop_daemon(proc)
+        raise SmokeError(f"daemon did not start: {buf[-2000:]}")
+    return proc, int(m.group(1))
+
+
+def stop_daemon(proc):
+    proc.send_signal(signal.SIGTERM)
+    try:
+        proc.wait(timeout=10)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+
+
+class TrainingThread:
+    """Runs the annotated flagship loop with the client's step() hook
+    until stopped; remembers its native thread id and every loss."""
+
+    def __init__(self, step_fn, make_batch, client):
+        self.losses: list[float] = []
+        self.error: Exception | None = None
+        self.tid: int | None = None
+        self._stop = threading.Event()
+        self._args = (step_fn, make_batch, client)
+        self._thread = threading.Thread(target=self._run, name="train",
+                                        daemon=True)
+
+    def _run(self):
+        self.tid = threading.get_native_id()
+        try:
+            while not self._stop.is_set():
+                self.losses.append(run_annotated_loop(
+                    self._args[0], self._args[1], 1, client=self._args[2]))
+        except Exception as e:  # reported on the main thread
+            self.error = e
+
+    def start(self):
+        self._thread.start()
+        wait_for(lambda: self.losses or self.error, 120, "first train step")
+        return self
+
+    def halt(self):
+        self._stop.set()
+        self._thread.join(timeout=60)
+
+    def stop(self):
+        self.halt()
+        check(not self._thread.is_alive(), "training thread did not stop")
+        self.alive_check()
+
+    def alive_check(self):
+        if self.error is not None:
+            raise SmokeError(f"training thread failed: {self.error!r}")
+
+
+class _StepOnly:
+    """The client with its step() hook but without phase annotations:
+    splits the overhead of the per-step phase datagrams (and the
+    daemon's per-phase CPU sampling they switch on) from the rest."""
+
+    def __init__(self, client):
+        self.step = client.step
+
+    def phase(self, name):
+        return contextlib.nullcontext()
+
+
+def measure_overhead(step_fn, make_batch, tag):
+    """Median ms/step with no client ("off"), with a running client that
+    only sees step() ("step_only"), with the full client ("on": step(),
+    phase annotations, metrics pushed every 1 s), and with the full
+    client against the daemon that samples no per-phase CPU
+    ("on_no_phase_cpu"). Sides rotate through equal windows so drift
+    spreads over all of them. Each window ends in
+    torch.cuda.synchronize(); the loop reads every loss back, as the
+    reference loop blocks on it."""
+    def window(client, steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_annotated_loop(step_fn, make_batch, steps, client=client)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / steps
+
+    probe = window(None, 10)
+    steps = max(20, int(2000 / probe))  # windows of ~2 s
+    sides = ["off", "step_only", "on", "on_no_phase_cpu"]
+    ms = {side: [] for side in sides}
+    for i in range(OVERHEAD_ROUNDS):
+        k = i % len(sides)
+        for side in sides[k:] + sides[:k]:
+            if side == "off":
+                ms[side].append(window(None, steps))
+                continue
+            client = DynologClient(
+                job_id=f"{JOB}_overhead", metrics_interval_s=1.0,
+                daemon_socket=QUIET if side == "on_no_phase_cpu" else None)
+            client.start()
+            try:
+                hook = _StepOnly(client) if side == "step_only" else client
+                window(hook, 3)  # registration settles
+                ms[side].append(window(hook, steps))
+            finally:
+                client.stop()
+    m_off = statistics.median(ms["off"])
+    for side in sides:
+        m = statistics.median(ms[side])
+        slower = sum(a > b for a, b in zip(ms[side], ms["off"]))
+        print(f"step_ms [{tag}] client_{side} median={m:.3f} "
+              f"windows={[round(x, 3) for x in ms[side]]} "
+              f"steps_per_window={steps} "
+              f"overhead={100 * (m - m_off) / m_off:+.3f}% "
+              f"slower_than_off_in={slower}/{OVERHEAD_ROUNDS}", flush=True)
+
+
+def find_traces(log_dir):
+    exported = [p for p in glob.glob(
+        os.path.join(log_dir, "**", "*.pt.trace.json"), recursive=True)
+        if not os.path.basename(p).startswith("streamed.")]
+    check(len(exported) == 1, f"expected one exported trace: {exported}")
+    return exported[0]
+
+
+def check_trace(log_dir, train_tid, label):
+    """The artifact of one capture: CUDA kernels, the training thread's
+    aten:: ops, the streamed copy, and the daemon's manifest."""
+    path = find_traces(log_dir)
+    with open(path, "rb") as f:
+        raw = f.read()
+    events = json.loads(raw)["traceEvents"]
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    aten_train = sum(1 for e in events
+                     if str(e.get("name", "")).startswith("aten::")
+                     and e.get("tid") == train_tid)
+    check(kernels > 0, f"{label}: no CUDA kernel events in {path}")
+    check(aten_train > 0,
+          f"{label}: no aten:: ops on the training thread {train_tid}")
+    streamed = os.path.join(os.path.dirname(path), "streamed.pt.trace.json")
+    check(os.path.exists(streamed), f"{label}: no streamed artifact")
+    with open(streamed, "rb") as f:
+        check(f.read() == raw, f"{label}: streamed artifact differs")
+    manifest_path = os.path.join(os.path.dirname(path),
+                                 "dynolog_manifest.json")
+    wait_for(lambda: os.path.exists(manifest_path), 15, f"{label} manifest")
+    with open(manifest_path) as f:
+        manifest = json.load(f)
+    check(manifest["trace_timing"]["trace_stop"] > 0,
+          f"{label}: manifest lacks trace_stop")
+    print(f"{label}: {os.path.basename(path)} bytes={len(raw)} "
+          f"events={len(events)} kernels={kernels} "
+          f"aten_on_train_thread={aten_train} streamed=identical "
+          f"manifest=ok", flush=True)
+    return len(raw)
+
+
+def run_capture(client, trainer, trigger, log_dir, timeout_s=120):
+    before = client.captures_completed
+    t_rpc = time.time()
+    trigger()
+    try:
+        wait_for(lambda: client.captures_completed > before or trainer.error,
+                 timeout_s, f"capture into {log_dir}")
+    except SmokeError as e:
+        raise SmokeError(f"{e}; trace_timing={client.trace_timing} "
+                         f"train steps={len(trainer.losses)}") from None
+    trainer.alive_check()
+    return t_rpc, dict(client.trace_timing)
+
+
+def parity_check(tag):
+    """Tiny model, float32 with TF32 off, same weights on CPU and GPU."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = ModelConfig.tiny(compute_dtype=torch.float32)
+    cpu = Transformer(cfg, device="cpu",
+                      generator=torch.Generator().manual_seed(3))
+    gpu = Transformer(cfg, device="cuda",
+                      generator=torch.Generator().manual_seed(3))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64),
+                           generator=torch.Generator().manual_seed(4))
+    with torch.no_grad():
+        ref = cpu(tokens)
+        out = gpu(tokens.cuda()).cpu()
+    err = float((out - ref).abs().max())
+    check(torch.isfinite(out).all(), "parity: non-finite GPU logits")
+    check(err <= PARITY_ATOL, f"parity: max abs {err} > {PARITY_ATOL}")
+    print(f"parity [{tag}] tiny fp32 logits gpu vs cpu max_abs={err:.3e} "
+          f"(limit {PARITY_ATOL})", flush=True)
+
+
+def main() -> int:
+    logging.basicConfig(level=logging.INFO, stream=sys.stderr,
+                        format="%(asctime)s %(threadName)s %(message)s")
+    # A stall anywhere still ends the run inside its time limit, with
+    # every thread's stack on stderr.
+    faulthandler.dump_traceback_later(1080, exit=True)
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    card = card_line()
+    print(card, flush=True)
+    print(f"env: torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)} "
+          f"count {torch.cuda.device_count()}", flush=True)
+    tag = card
+
+    daemon_bin, dyno_bin = build_native()
+
+    os.environ["DYNOLOG_TPU_SOCKET_DIR"] = tempfile.mkdtemp(
+        prefix="chip_smoke_")
+    daemon, port = start_daemon(daemon_bin, "--trace_stream_max_mb", "1024")
+    client = trainer = None
+    try:
+        print(f"daemon: port {port}", flush=True)
+        rpc = DynoClient(port=port)
+
+        model, _, step_fn = make_train_step(
+            FLAGSHIP, device="cuda",
+            generator=torch.Generator().manual_seed(0))
+        n_params = sum(p.numel() for p in model.parameters())
+        tokens = torch.randint(
+            0, FLAGSHIP.vocab_size, (BATCH, SEQ),
+            generator=torch.Generator().manual_seed(1)).cuda()
+
+        def make_batch(i):
+            return tokens
+
+        first_loss = run_annotated_loop(step_fn, make_batch, 3)
+        print(f"workload: flagship {n_params} params, batch {BATCH}x{SEQ}, "
+              f"bf16, remat; first loss {first_loss:.4f}", flush=True)
+
+        # A second daemon without per-phase CPU sampling, for the
+        # overhead split.
+        quiet, _ = start_daemon(daemon_bin, "--ipc_socket_name", QUIET,
+                                "--phase_cpu_interval_s", "3600")
+        try:
+            measure_overhead(step_fn, make_batch, tag)
+        finally:
+            stop_daemon(quiet)
+
+        client = DynologClient(job_id=JOB, poll_interval_s=0.5,
+                               metrics_interval_s=1.0).start()
+        trainer = TrainingThread(step_fn, make_batch, client).start()
+
+        def registered():
+            jobs = rpc.trace_registry().get("jobs", {})
+            procs = [p for p in jobs.get(JOB, []) if p["pid"] == os.getpid()]
+            return procs[0] if procs else None
+
+        reg = wait_for(registered, 30, "client registration")
+        check(reg["metadata"].get("platform") == "gpu",
+              f"registration metadata: {reg['metadata']}")
+        print(f"register: job {JOB} pid {reg['pid']} metadata.platform=gpu "
+              f"device_count={reg['metadata'].get('device_count')}",
+              flush=True)
+
+        def gpu_record():
+            for dev in rpc.tpu_status().get("devices", []):
+                met = dev.get("metrics", {})
+                if (dev.get("job_id") == JOB and met.get("platform") == "gpu"
+                        and "tensorcore_duty_cycle_pct" in met):
+                    return met
+            return None
+
+        met = wait_for(gpu_record, 30, "pushed GPU telemetry")
+        check("H100" in met.get("device_kind", ""), f"device_kind: {met}")
+        check(met.get("hbm_used_bytes", 0) > 0, f"hbm_used_bytes: {met}")
+        check(met.get("hbm_total_bytes", 0) > 0, f"hbm_total_bytes: {met}")
+        print(f"telemetry [{tag}] device={met['device']} "
+              f"kind={met['device_kind']} "
+              f"hbm_used_bytes={met['hbm_used_bytes']} "
+              f"hbm_total_bytes={met['hbm_total_bytes']} "
+              f"tensorcore_duty_cycle_pct={met['tensorcore_duty_cycle_pct']}",
+              flush=True)
+
+        trace_root = tempfile.mkdtemp(prefix="chip_smoke_traces_")
+        dur_dir = os.path.join(trace_root, "gputrace")
+
+        def gputrace():
+            out = subprocess.run(
+                [str(dyno_bin), "--port", str(port), "gputrace",
+                 "--job_id", JOB, "--duration_ms", str(TRACE_MS),
+                 "--log_dir", dur_dir],
+                capture_output=True, text=True, timeout=30)
+            check(out.returncode == 0 and "Triggered 1" in out.stdout,
+                  f"dyno gputrace: {out.stdout} {out.stderr}")
+
+        _, t = run_capture(client, trainer, gputrace, dur_dir)
+        check_trace(dur_dir, trainer.tid, "gputrace")
+        to_start = (t["trace_start"] - t["config_received"]) * 1e3
+        start_call = (t["start_returned"] - t["trace_start"]) * 1e3
+        print(f"gputrace [{tag}] first capture in the process: "
+              f"config->start {to_start:.1f} ms, profiler start call "
+              f"{start_call:.1f} ms", flush=True)
+
+        def arm(log_dir, **extra):
+            return lambda: rpc.set_trace_config(job_id=JOB, config={
+                "type": "xplane", "log_dir": log_dir,
+                "duration_ms": TRACE_MS, **extra})
+
+        iter_dir = os.path.join(trace_root, "iteration")
+        run_capture(client, trainer,
+                    arm(iter_dir, iterations=5, iteration_roundup=10),
+                    iter_dir)
+        check_trace(iter_dir, trainer.tid, "iteration")
+
+        phases = {"rpc_to_config": [], "config_to_start": [],
+                  "start_call": [], "start_to_stop": [], "stop_call": [],
+                  "stop_to_artifact": [], "stop_to_stream_commit": []}
+        sizes = []
+        for i in range(LATENCY_TRIALS):
+            log_dir = os.path.join(trace_root, f"latency_{i}")
+            t_rpc, t = run_capture(client, trainer, arm(log_dir), log_dir)
+            sizes.append(check_trace(log_dir, trainer.tid, f"latency_{i}"))
+            phases["rpc_to_config"].append(t["config_received"] - t_rpc)
+            phases["config_to_start"].append(
+                t["trace_start"] - t["config_received"])
+            phases["start_call"].append(t["start_returned"] - t["trace_start"])
+            phases["start_to_stop"].append(t["trace_stop"] - t["trace_start"])
+            phases["stop_call"].append(t["trace_stop"] - t["stop_begin"])
+            phases["stop_to_artifact"].append(
+                t["export_done"] - t["trace_stop"])
+            phases["stop_to_stream_commit"].append(
+                t["stream_commit"] - t["trace_stop"])
+        for name, xs in phases.items():
+            ms = [round(x * 1e3, 3) for x in xs]
+            print(f"trace_latency [{tag}] {name} median_ms="
+                  f"{statistics.median(ms):.3f} trials_ms={ms} "
+                  f"window_ms={TRACE_MS}", flush=True)
+        print(f"artifact [{tag}] pt.trace.json bytes median="
+              f"{int(statistics.median(sizes))} trials={sizes}", flush=True)
+
+        trainer.stop()
+        losses = trainer.losses
+        check(all(map(math.isfinite, losses)), "non-finite flagship loss")
+        check(losses[-1] < first_loss,
+              f"flagship loss did not fall: {first_loss} -> {losses[-1]}")
+        print(f"training: {len(losses)} traced-run steps, loss "
+              f"{first_loss:.4f} -> {losses[-1]:.4f}, finite", flush=True)
+        trainer = None
+
+        parity_check(tag)
+    finally:
+        if trainer is not None:
+            trainer.halt()
+        if client is not None:
+            client.stop()
+        stop_daemon(daemon)
+
+    print(json.dumps({"kernels": []}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
