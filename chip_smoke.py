@@ -32,6 +32,13 @@ without the final line:
   parity     the tiny model in float32 (TF32 off) on the GPU against the
              same weights on the CPU, max abs <= 1e-4
   training   the flagship loss is finite and fell over the run
+  fleet      three daemons and three worker processes (this script with
+             --fleet-worker), each training the flagship step on the one
+             card under the real shim as one host of a job; unitrace
+             gang-traces them with --report --health-check, every host's
+             .pt.trace.json is checked, and pull_artifacts brings the
+             committed streams back over RPC byte for byte. The three
+             workers share the card, so their steps contend for it.
 
 The port has no hand-written kernel (the JAX package has no Pallas
 kernel), so the kernel table it prints is empty. The last line is the
@@ -43,6 +50,7 @@ from __future__ import annotations
 import contextlib
 import faulthandler
 import glob
+import hashlib
 import json
 import logging
 import math
@@ -59,6 +67,7 @@ import time
 import torch
 
 from dynolog_tpu_torch.client import DynologClient
+from dynolog_tpu_torch.fleet import trace_report, unitrace
 from dynolog_tpu_torch.models.train import make_train_step, run_annotated_loop
 from dynolog_tpu_torch.models.transformer import ModelConfig, Transformer
 from dynolog_tpu_torch.utils.procutil import wait_for_stderr
@@ -77,6 +86,9 @@ TRACE_MS = 500
 LATENCY_TRIALS = 3
 PARITY_ATOL = 1e-4
 QUIET = "dynolog_tpu_no_phase_cpu"
+FLEET_JOB = "chip_smoke_fleet"
+FLEET_HOSTS = 3
+FLEET_DELAY_S = 3
 
 
 class SmokeError(RuntimeError):
@@ -325,7 +337,226 @@ def parity_check(tag):
           f"(limit {PARITY_ATOL})", flush=True)
 
 
+def fleet_worker() -> int:
+    """One host of the fleet phase: the flagship step on cuda:0 under the
+    real shim, registered to the daemon $DYNOLOG_TPU_SOCKET names, until
+    SIGTERM. Prints one JSON line when the first step is done and one
+    when it stops."""
+    logging.basicConfig(level=logging.WARNING, stream=sys.stderr,
+                        format="%(asctime)s worker %(process)d %(message)s")
+    if not torch.cuda.is_available():
+        print("fleet worker: CUDA is not available", file=sys.stderr)
+        return 1
+    stop = threading.Event()
+    signal.signal(signal.SIGTERM, lambda *_: stop.set())
+    _, _, step_fn = make_train_step(
+        FLAGSHIP, device="cuda", generator=torch.Generator().manual_seed(0))
+    tokens = torch.randint(
+        0, FLAGSHIP.vocab_size, (BATCH, SEQ),
+        generator=torch.Generator().manual_seed(1)).cuda()
+    client = DynologClient(job_id=FLEET_JOB, poll_interval_s=0.5,
+                           metrics_interval_s=1.0).start()
+    step_ms, losses = [], []
+    try:
+        while not stop.is_set():
+            t0 = time.perf_counter()
+            losses.append(run_annotated_loop(
+                step_fn, lambda i: tokens, 1, client=client))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if len(losses) == 1:
+                print(json.dumps({"ready": os.getpid(),
+                                  "tid": threading.get_native_id()}),
+                      flush=True)
+    finally:
+        client.stop()
+    print(json.dumps({"done": os.getpid(), "steps": len(losses),
+                      "first_loss": losses[0], "last_loss": losses[-1],
+                      "median_step_ms": statistics.median(step_ms)}),
+          flush=True)
+    return 0
+
+
+class FleetWorker:
+    """A --fleet-worker child and the JSON lines it printed."""
+
+    def __init__(self, socket_name):
+        self.proc = subprocess.Popen(
+            [sys.executable, str(pathlib.Path(__file__).resolve()),
+             "--fleet-worker"],
+            env={**os.environ, "DYNOLOG_TPU_SOCKET": socket_name},
+            stdout=subprocess.PIPE, text=True)
+        self.lines: list[dict] = []
+        threading.Thread(target=self._read, daemon=True).start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            if line.startswith("{"):
+                self.lines.append(json.loads(line))
+
+    def get(self, key):
+        for line in self.lines:
+            if key in line:
+                return line
+        if self.proc.poll() not in (None, 0):
+            raise SmokeError(f"fleet worker exited {self.proc.returncode}")
+        return None
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+        try:
+            self.proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def start_fleet_daemon(daemon_bin, socket_name):
+    """A fleet daemon whose pushed-telemetry tick runs every second, so
+    pushed records reach the aggregates the health check scores, with
+    its stderr drained (its log grows with every tick)."""
+    proc, port = start_daemon(
+        daemon_bin, "--ipc_socket_name", socket_name,
+        "--tpu_monitor_interval_s", "1", "--trace_stream_max_mb", "256",
+        "--enable_perf_monitor=false")
+    threading.Thread(target=proc.stderr.read, daemon=True).start()
+    return proc, port
+
+
+def _sha256(path):
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def fleet_phase(daemon_bin, tag):
+    """The fleet path: unitrace gang-traces three flagship workers, each
+    under its own daemon, with the report and the health check, then
+    pulls the committed streams back over RPC."""
+    t_phase = time.monotonic()
+    names = [f"chip_smoke_fleet{i}" for i in range(FLEET_HOSTS)]
+    daemons, workers = [], []
+    try:
+        for name in names:
+            daemons.append(start_fleet_daemon(daemon_bin, name))
+        workers = [FleetWorker(name) for name in names]
+        ready = wait_for(
+            lambda: all(w.get("ready") for w in workers) and [
+                w.get("ready") for w in workers], 180, "fleet workers")
+        tid_of = {r["ready"]: r["tid"] for r in ready}
+        hosts = [f"localhost:{port}" for _, port in daemons]
+
+        def duty_samples():
+            # Pushed records reach a sweep once the daemon's tick has
+            # logged two of them into its history.
+            for _, port in daemons:
+                win = DynoClient(port=port).get_aggregates(
+                    windows_s=[300], key_prefix="tensorcore_duty_cycle_pct"
+                ).get("windows", {}).get("300", {})
+                if not any(s.get("count", 0) >= 2 for s in win.values()):
+                    return False
+            return True
+
+        deadline = time.monotonic() + 30
+        while not duty_samples() and time.monotonic() < deadline:
+            time.sleep(0.5)
+        if not duty_samples():
+            print(f"fleet [{tag}] aggregates held no "
+                  "tensorcore_duty_cycle_pct with 2 samples on every "
+                  "daemon after 30 s", flush=True)
+
+        log_dir = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+        args = unitrace.build_parser().parse_args([
+            "--hosts", ",".join(hosts), "--job-id", FLEET_JOB,
+            "--log-dir", log_dir, "--duration-ms", str(TRACE_MS),
+            "--start-time-delay-s", str(FLEET_DELAY_S),
+            "--report", "--report-wait-s", "120", "--health-check"])
+        t0 = time.monotonic()
+        out = unitrace.run(args)
+        run_s = time.monotonic() - t0
+        check(out["ok"] == FLEET_HOSTS and len(out["hosts"]) == FLEET_HOSTS,
+              f"fleet: {out['ok']}/{len(out['hosts'])} hosts triggered: "
+              f"{out['results']}")
+        manifests = trace_report.collect_manifests(log_dir)
+        check(len(manifests) == FLEET_HOSTS,
+              f"fleet: {len(manifests)} manifests under {log_dir}")
+        check(out.get("report_path"), "fleet: unitrace --report wrote none")
+        with open(out["report_path"]) as f:
+            md = json.load(f)["metadata"]
+        check(md["hosts"] == FLEET_HOSTS, f"fleet report metadata: {md}")
+        arts = md.get("artifacts", [])
+        check(len(arts) == FLEET_HOSTS
+              and all(a["path"].endswith(".pt.trace.json") for a in arts),
+              f"fleet report artifacts: {arts}")
+        for m in manifests:
+            check(m.get("pid") in tid_of, f"fleet: manifest of pid "
+                  f"{m.get('pid')}, workers {sorted(tid_of)}")
+            check_trace(m["_dir"], tid_of[m["pid"]],
+                        f"fleet {os.path.basename(m['_dir'])}")
+        health = out.get("health") or {}
+        scored = len(health.get("hosts", [])) - len(
+            health.get("unreachable", []))
+        check(scored == FLEET_HOSTS and not health.get("aggregates_failed"),
+              f"fleet health verdict scored {scored} hosts: {health}")
+
+        pull_dir = tempfile.mkdtemp(prefix="chip_smoke_pull_")
+        t0 = time.monotonic()
+        pulled = unitrace.pull_artifacts(out["hosts"], pull_dir,
+                                         timeout_s=30)
+        pull_s = time.monotonic() - t0
+        check(pulled == FLEET_HOSTS, f"fleet: pulled {pulled} artifacts")
+        pulled_bytes = 0
+        for m in manifests:
+            sub = os.path.basename(m["_dir"])
+            got = os.path.join(pull_dir, sub, trace_report.STREAMED_ARTIFACT)
+            want = os.path.join(m["_dir"], trace_report.STREAMED_ARTIFACT)
+            check(os.path.isfile(got), f"fleet: no pulled {got}")
+            check(_sha256(got) == _sha256(want),
+                  f"fleet: pulled {got} differs from {want}")
+            pulled_bytes += os.path.getsize(got)
+
+        streamed = sum(1 for a in arts if a.get("source") == "streamed")
+        print(f"fleet [{tag}] {FLEET_HOSTS}/{FLEET_HOSTS} hosts triggered, "
+              f"{len(manifests)} manifests, report over {md['hosts']} "
+              f"hosts in {run_s:.1f} s (3 workers share one card)",
+              flush=True)
+        print(f"fleet [{tag}] capture_start_skew_ms="
+              f"{md.get('capture_start_skew_ms')} deliver_ms_max="
+              f"{md.get('deliver_ms_max')} (start delay "
+              f"{FLEET_DELAY_S} s included) streamed_artifacts={streamed}"
+              f"/{len(arts)}", flush=True)
+        print(f"fleet [{tag}] pull_artifacts {pulled} files "
+              f"{pulled_bytes} bytes in {pull_s * 1e3:.1f} ms, sha256 "
+              f"identical to the committed streams", flush=True)
+        duty = (health.get("metrics", {})
+                .get("tensorcore_duty_cycle_pct", {}).get("values", {}))
+        if duty:
+            for host in hosts:
+                print(f"fleet [{tag}] health {host} "
+                      f"tensorcore_duty_cycle_pct={duty.get(host)}",
+                      flush=True)
+        else:
+            print(f"fleet [{tag}] health: the aggregates held no "
+                  "tensorcore_duty_cycle_pct scalar for any host",
+                  flush=True)
+    finally:
+        for w in workers:
+            w.stop()
+        for proc, _ in daemons:
+            stop_daemon(proc)
+    for w in workers:
+        done = w.get("done")
+        check(done and math.isfinite(done["last_loss"]),
+              f"fleet worker {w.proc.pid} ended with {w.lines}")
+        print(f"fleet [{tag}] worker {done['done']}: {done['steps']} steps, "
+              f"median {done['median_step_ms']:.1f} ms/step with 3 "
+              f"workers on one card, loss {done['first_loss']:.4f} -> "
+              f"{done['last_loss']:.4f}", flush=True)
+    print(f"fleet: phase took {time.monotonic() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
+    if sys.argv[1:] == ["--fleet-worker"]:
+        return fleet_worker()
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
                         format="%(asctime)s %(threadName)s %(message)s")
     # A stall anywhere still ends the run inside its time limit, with
@@ -483,6 +714,8 @@ def main() -> int:
         if client is not None:
             client.stop()
         stop_daemon(daemon)
+
+    fleet_phase(daemon_bin, tag)
 
     print(json.dumps({"kernels": []}), flush=True)
     print(json.dumps({"ok": True, "device": {

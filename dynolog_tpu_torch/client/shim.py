@@ -195,6 +195,13 @@ class DynologClient:
             log.warning(
                 "profiler_server_port=%s ignored: torch.profiler has no "
                 "profiler server", self.profiler_server_port)
+        # A profiler's first start imports torch._inductor, and so does
+        # the workload's first optimizer (through torch._dynamo). Two
+        # threads importing them at once deadlock the imports and raise
+        # ImportError in both: a capture that arrived while the job was
+        # still building its optimizer killed the job. Import them here,
+        # on the caller's thread, before any capture thread can exist.
+        import torch._inductor  # noqa: F401
         self._register()
         self._thread = threading.Thread(
             target=self._loop, name="dynolog-tpu-client", daemon=True)

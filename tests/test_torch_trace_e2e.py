@@ -336,6 +336,36 @@ def test_user_profiler_makes_capture_fail_soft(trace_daemon, client,
     assert _traces(tmp_path / "after")
 
 
+def test_start_imports_what_a_profiler_start_imports(monkeypatch):
+    """A profiler's first start imports torch._inductor, as the
+    workload's first optimizer does: started on the capture thread
+    while the training thread built its optimizer, the two imports
+    deadlocked and raised ImportError in the training thread. start()
+    imports it on the caller's thread before its own thread exists."""
+    import builtins
+
+    from dynolog_tpu_torch.client import DynologClient
+
+    seen = []
+    real_import = builtins.__import__
+
+    def recording_import(name, *args, **kwargs):
+        seen.append((name, threading.current_thread().name,
+                     threading.active_count()))
+        return real_import(name, *args, **kwargs)
+
+    threads_before = threading.active_count()
+    client = DynologClient(job_id="x", daemon_socket="no_daemon_here")
+    monkeypatch.setattr(builtins, "__import__", recording_import)
+    try:
+        client.start()
+    finally:
+        monkeypatch.undo()
+        client.stop()
+    caller = threading.current_thread().name
+    assert ("torch._inductor", caller, threads_before) in seen, seen
+
+
 def test_selftest_passes(daemon_bin):
     out = subprocess.run(
         [sys.executable, "-m", "dynolog_tpu_torch.client.selftest",

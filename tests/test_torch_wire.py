@@ -6,6 +6,7 @@ the port emits must be the one the reference would emit for the same
 message.
 """
 
+import ast
 import json
 import os
 import pathlib
@@ -188,4 +189,56 @@ def test_port_and_chip_smoke_import_no_jax():
         capture_output=True, text=True, timeout=120, cwd=REPO)
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules, bad = out.stdout.split(maxsplit=1)
-    assert int(n_modules) >= 14 and bad.strip() == "[]"
+    assert int(n_modules) >= 22 and bad.strip() == "[]"
+
+
+# The module walk above sees only what importing a module loads; an
+# import inside a function body runs when the function does. The source
+# scan sees every import statement at any depth, and the dynamic forms.
+_BANNED = frozenset({"jax", "jaxlib", "optax", "dynolog_tpu"})
+_PORT_SOURCES = sorted(
+    str(p.relative_to(REPO))
+    for p in [*(REPO / "dynolog_tpu_torch").rglob("*.py"),
+              REPO / "chip_smoke.py"])
+
+
+def _banned_imports(source: str, filename: str) -> list[str]:
+    found = []
+    for node in ast.walk(ast.parse(source, filename)):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        elif (isinstance(node, ast.Call) and node.args
+              and isinstance(node.args[0], ast.Constant)
+              and isinstance(node.args[0].value, str)
+              and (getattr(node.func, "attr", None) == "import_module"
+                   or getattr(node.func, "id", None) == "__import__")):
+            names = [node.args[0].value]
+        found += [f"{filename}:{node.lineno} {n}" for n in names
+                  if n.split(".")[0] in _BANNED]
+    return found
+
+
+@pytest.mark.parametrize("relpath", _PORT_SOURCES)
+def test_port_source_imports_no_jax_at_any_depth(relpath):
+    source = (REPO / relpath).read_text(encoding="utf-8")
+    assert _banned_imports(source, relpath) == []
+
+
+def test_source_scan_finds_function_local_imports():
+    source = (
+        "import dynolog_tpu_torch.fleet\n"
+        "from dynolog_tpu_torch.utils import rpc\n"
+        "def f():\n"
+        "    from dynolog_tpu.fleet import trace_report\n"
+        "    class C:\n"
+        "        def g(self):\n"
+        "            import optax, jax.numpy\n"
+        "    importlib.import_module('jaxlib.xla_client')\n"
+        "    return __import__('dynolog_tpu')\n")
+    assert _banned_imports(source, "m.py") == [
+        "m.py:4 dynolog_tpu.fleet", "m.py:8 jaxlib.xla_client",
+        "m.py:9 dynolog_tpu", "m.py:7 optax", "m.py:7 jax.numpy"]
+    assert len(_PORT_SOURCES) >= 25
