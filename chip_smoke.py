@@ -39,6 +39,13 @@ without the final line:
              .pt.trace.json is checked, and pull_artifacts brings the
              committed streams back over RPC byte for byte. The three
              workers share the card, so their steps contend for it.
+  retro      the flight recorder: a daemon with a retro ring of 500 ms
+             windows and a watch rule with a trace action; the flagship
+             step under the real shim until the ring covers a window, an
+             injected anomaly, the ring's export beside the forward
+             capture, the merged report's metadata.retro and a decoded
+             window's CUDA kernels; then ms/step with the ring on and off
+             in rotating windows. A disabled or empty ring fails it.
 
 The port has no hand-written kernel (the JAX package has no Pallas
 kernel), so the kernel table it prints is empty. The last line is the
@@ -67,7 +74,7 @@ import time
 import torch
 
 from dynolog_tpu_torch.client import DynologClient
-from dynolog_tpu_torch.fleet import trace_report, unitrace
+from dynolog_tpu_torch.fleet import eventlog, trace_report, unitrace
 from dynolog_tpu_torch.models.train import make_train_step, run_annotated_loop
 from dynolog_tpu_torch.models.transformer import ModelConfig, Transformer
 from dynolog_tpu_torch.utils.procutil import wait_for_stderr
@@ -89,6 +96,15 @@ QUIET = "dynolog_tpu_no_phase_cpu"
 FLEET_JOB = "chip_smoke_fleet"
 FLEET_HOSTS = 3
 FLEET_DELAY_S = 3
+RETRO_JOB = "chip_smoke_retro"
+RETRO_SOCKET = "chip_smoke_retro"
+RETRO_WINDOW_MS = 500
+RETRO_ROUNDS = 4
+# The retro phase's watch rule reads a series that only its put_history
+# writes: NVML reads this card's duty cycle at 0-38 %, so a rule on
+# tensorcore_duty_cycle_pct could fire on real readings before the ring
+# is primed.
+RETRO_METRIC = "chip_smoke_anomaly"
 
 
 class SmokeError(RuntimeError):
@@ -554,13 +570,213 @@ def fleet_phase(daemon_bin, tag):
     print(f"fleet: phase took {time.monotonic() - t_phase:.1f} s", flush=True)
 
 
+def _retro_uploads(client):
+    return [sp for sp in client.spans.snapshot()
+            if sp["name"] == "retro_upload"]
+
+
+def measure_ring(step_fn, make_batch, tag):
+    """Median ms/step of the full client against the main daemon (ring
+    off) and against the retro daemon (ring on), in rotating windows of
+    ~2 s, each with a fresh client. Returns the ring-on clients'
+    retro_upload spans and the training time each window cost."""
+    def window(client, steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_annotated_loop(step_fn, make_batch, steps, client=client)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / steps
+
+    probe = window(None, 10)
+    steps = max(20, int(2000 / probe))
+    ms = {"ring_off": [], "ring_on": []}
+    uploads, extra_ms = [], []
+    for i in range(RETRO_ROUNDS):
+        sides = ["ring_off", "ring_on"]
+        for side in sides[i % 2:] + sides[:i % 2]:
+            client = DynologClient(
+                job_id=f"{RETRO_JOB}_overhead", metrics_interval_s=1.0,
+                daemon_socket=RETRO_SOCKET if side == "ring_on" else None)
+            client.start()
+            try:
+                window(client, 3)
+                # Windows start in step(): train until the first landed.
+                deadline = time.monotonic() + 60
+                while side == "ring_on" and not _retro_uploads(client):
+                    check(time.monotonic() < deadline,
+                          "retro: no window uploaded within 60 s")
+                    window(client, 1)
+                n0 = len(_retro_uploads(client))
+                ms[side].append(window(client, steps))
+                taken = len(_retro_uploads(client)) - n0
+            finally:
+                client.stop()
+            if side == "ring_on":
+                uploads.extend(_retro_uploads(client))
+                check(client.spans.counters().get("retro_disabled", 0) == 0,
+                      "retro: the flight recorder disabled itself")
+                on_windows = taken
+        # Training time the ring cost this round, per window it took.
+        if on_windows:
+            extra_ms.append((ms["ring_on"][-1] - ms["ring_off"][-1])
+                            * steps / on_windows)
+    m_off = statistics.median(ms["ring_off"])
+    for side in ms:
+        m = statistics.median(ms[side])
+        slower = sum(a > b for a, b in zip(ms[side], ms["ring_off"]))
+        print(f"retro [{tag}] step_ms client_{side} median={m:.3f} "
+              f"windows={[round(x, 3) for x in ms[side]]} "
+              f"steps_per_window={steps} "
+              f"vs_ring_off={100 * (m - m_off) / m_off:+.3f}% "
+              f"slower_than_off_in={slower}/{RETRO_ROUNDS}", flush=True)
+    return uploads, extra_ms
+
+
+def retro_phase(daemon_bin, step_fn, make_batch, tag):
+    """The flight recorder on the card: one anomaly turned into a merged
+    report of the ring's windows and the forward capture, with no
+    operator RPC but the injection; then the ring's cost."""
+    t_phase = time.monotonic()
+    store = tempfile.mkdtemp(prefix="chip_smoke_retro_store_")
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_retro_")
+    proc, port = start_daemon(
+        daemon_bin, "--ipc_socket_name", RETRO_SOCKET,
+        "--storage_dir", store,
+        "--retro_window_ms", str(RETRO_WINDOW_MS),
+        "--retro_ring_windows", "4",
+        "--enable_history_injection",
+        "--watch", f"{RETRO_METRIC}>50:60:trace(400)",
+        "--watch_interval_s", "0.3", "--watch_z_threshold", "0",
+        "--capture_log_dir", log_dir, "--capture_job_id", RETRO_JOB,
+        "--capture_start_delay_ms", "100",
+        "--trace_stream_max_mb", "1024")
+    threading.Thread(target=proc.stderr.read, daemon=True).start()
+    client = trainer = None
+    try:
+        rpc = DynoClient(port=port)
+        client = DynologClient(job_id=RETRO_JOB, poll_interval_s=0.5,
+                               metrics_interval_s=1.0,
+                               daemon_socket=RETRO_SOCKET).start()
+        trainer = TrainingThread(step_fn, make_batch, client).start()
+        def coverage_ms():
+            fr = rpc.status().get("flightrecorder") or {}
+            return fr.get("coverage_ms", 0) >= RETRO_WINDOW_MS and \
+                fr["coverage_ms"]
+
+        primed_coverage = wait_for(coverage_ms, 60,
+                                   f"the ring covering {RETRO_WINDOW_MS} ms")
+
+        def events(etype):
+            got = eventlog.fetch_all_events(rpc)["events"]
+            return [e for e in got if e["type"] == etype]
+
+        now_ms = int(time.time() * 1000)
+        resp = rpc.put_history(f"{RETRO_METRIC}.dev0", [
+            (now_ms - (30 - k) * 1000, 100.0) for k in range(30)])
+        check(resp.get("added") == 30, f"retro: put_history {resp}")
+        t_inject = time.monotonic()
+        done = wait_for(lambda: events("autocapture_complete"), 60,
+                        "autocapture_complete")[0]
+        check("retro ring exported" in done["detail"],
+              f"retro: autocapture_complete says {done['detail']!r}")
+        fire_s = time.monotonic() - t_inject
+        wait_for(lambda: client.captures_completed >= 1 or trainer.error,
+                 120, "the triggered forward capture")
+        trainer.alive_check()
+        manifests = wait_for(
+            lambda: trace_report.collect_manifests(log_dir), 30,
+            "the forward capture's manifest")
+        retro = trace_report.collect_retro(log_dir)
+        check(retro, f"retro: no retro_manifest.json under {log_dir}")
+        train_tid = trainer.tid
+        # The client first: the training thread's next step() ends the
+        # window it runs (a profiler stops only on its own thread).
+        client.stop()
+        trainer.stop()
+        counters = client.spans.counters()
+        check(counters.get("retro_disabled", 0) == 0,
+              f"retro: the flight recorder disabled itself: {counters}")
+        check(counters.get("retro_windows_captured", 0) > 0,
+              f"retro: no window captured: {counters}")
+        uploads = _retro_uploads(client)
+        trainer = client = None
+
+        check_trace(manifests[0]["_dir"], train_tid, "retro forward")
+        with open(trace_report.write_report(log_dir)) as f:
+            md = json.load(f)["metadata"]
+        check(md.get("hosts") == 1, f"retro report metadata: {md}")
+        arts = md.get("artifacts", [])
+        check(len(arts) == 1 and arts[0]["path"].endswith(".pt.trace.json"),
+              f"retro report: no forward capture artifact: {arts}")
+        r = md.get("retro") or {}
+        check(r.get("windows", 0) >= 1
+              and r.get("coverage_ms", 0) >= RETRO_WINDOW_MS,
+              f"retro report metadata.retro: {r}")
+        kernels = []
+        for m in retro:
+            for w in m.get("windows", []):
+                check(w.get("job_id") == RETRO_JOB,
+                      f"retro: exported window of another job: {w}")
+                trace = trace_report.read_retro_window(
+                    os.path.join(m["_dir"], w["file"]))
+                kernels.append(sum(1 for e in trace["traceEvents"]
+                                   if e.get("cat") == "kernel"))
+        check(any(kernels), f"retro: no CUDA kernel in any exported "
+              f"window: {kernels}")
+
+        captured = counters.get("retro_windows_captured", 0)
+        failed = counters.get("retro_upload_failures", 0)
+        print(f"retro [{tag}] windows captured={captured} skipped="
+              f"{counters.get('retro_windows_skipped', 0)} uploaded="
+              f"{captured - failed} upload_failures={failed}", flush=True)
+        print(f"retro [{tag}] primed coverage_ms={primed_coverage}; "
+              f"anomaly -> autocapture_complete in {fire_s:.2f} s: "
+              f"{done['detail']}", flush=True)
+        print(f"retro [{tag}] report metadata.retro windows="
+              f"{r['windows']} coverage_ms={r['coverage_ms']} gaps="
+              f"{r.get('gaps')} hosts={r.get('hosts')}, forward artifact "
+              f"{os.path.basename(arts[0]['path'])}; kernels per exported "
+              f"window {kernels}", flush=True)
+
+        # The ring's cost, after the report: these clients' windows land
+        # in the same ring.
+        more, extra_ms = measure_ring(step_fn, make_batch, tag)
+        ok = [u for u in uploads + more if u.get("ok")]
+        check(ok, "retro: no window uploaded")
+        print(f"retro [{tag}] training-thread cost per window: median "
+              f"{statistics.median(extra_ms):.1f} ms, rounds "
+              f"{[round(x, 1) for x in extra_ms]}; stop call in step() "
+              f"median={statistics.median(u['stop_ms'] for u in ok):.1f} "
+              f"max={max(u['stop_ms'] for u in ok):.1f} ms; export on the "
+              f"recorder's thread (holding the interpreter lock) median="
+              f"{statistics.median(u['export_ms'] for u in ok):.1f} ms",
+              flush=True)
+        print(f"retro [{tag}] window bytes median="
+              f"{int(statistics.median(u['json_bytes'] for u in ok))} "
+              f"(JSON), {int(statistics.median(u['bytes'] for u in ok))} "
+              f"gzipped, max {max(u['bytes'] for u in ok)}; gzip_ms "
+              f"median={statistics.median(u['gzip_ms'] for u in ok):.1f}; "
+              f"upload_ms median="
+              f"{statistics.median(u['dur_ms'] for u in ok):.1f} max="
+              f"{max(u['dur_ms'] for u in ok):.1f} over {len(ok)} uploads "
+              f"({len(uploads) + len(more) - len(ok)} failed)", flush=True)
+    finally:
+        if client is not None:
+            client.stop()
+        if trainer is not None:
+            trainer.halt()
+        stop_daemon(proc)
+    print(f"retro: phase took {time.monotonic() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     if sys.argv[1:] == ["--fleet-worker"]:
         return fleet_worker()
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
                         format="%(asctime)s %(threadName)s %(message)s")
-    # A stall anywhere still ends the run inside its time limit, with
-    # every thread's stack on stderr.
+    # A stall anywhere still ends the run inside its time limit, and a
+    # crash too, with every thread's stack on stderr.
+    faulthandler.enable()
     faulthandler.dump_traceback_later(1080, exit=True)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -708,6 +924,7 @@ def main() -> int:
         trainer = None
 
         parity_check(tag)
+        retro_phase(daemon_bin, step_fn, make_batch, tag)
     finally:
         if trainer is not None:
             trainer.halt()

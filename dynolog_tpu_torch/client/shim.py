@@ -43,6 +43,23 @@ thread's CPU ops. Only one profiler session can run in a process: when
 the user's own ``torch.profiler`` is active the capture is dropped with a
 warning and never raises into the training loop.
 
+Flight recorder. A daemon started with ``--retro_window_ms`` advertises a
+``retro`` block on its cack and poll replies; the shim then records
+rolling windows and streams each into the daemon's retro ring, which the
+daemon exports beside a forward capture when a watch rule fires. A
+window is a ``torch.profiler`` session of ``ProfilerActivity.CUDA`` only
+(``ProfilerActivity.CPU`` without CUDA in use), started and stopped in
+``step()`` on the training thread, like a forward capture: stopping a
+CUDA profiler on another thread while the training thread launches
+kernels crashed the process on an H100 (PERF.md, PR 4). The recorder's
+own thread exports each stopped window, gzips it (level 1), streams it,
+and only then asks ``step()`` for the next one, so no session runs while
+another is exported. A forward capture ends the window in flight at the
+next ``step()`` and pauses the ring until it is done. Kineto's stop and
+Chrome export hold the interpreter lock for their whole length, so the
+training thread pays each window's stop and, through the lock, its
+export. A workload that never calls ``step()`` records no window.
+
 Usage:
     client = DynologClient(job_id="42")
     client.start()
@@ -55,11 +72,15 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import gzip
 import json
 import logging
 import os
+import queue
 import random
+import shutil
 import socket as _socket
+import tempfile
 import threading
 import time
 
@@ -81,6 +102,14 @@ _ITERATION_FALLBACK_S = 10.0
 # to start the profiler there, before the capture thread starts it itself
 # (a workload that never called step() falls back at once).
 _STEP_WAIT_S = 2.0
+
+# The flight recorder's thread checks this often, while it waits for
+# step() to hand it a window, whether the client is stopping.
+_RETRO_SLICE_S = 0.05
+
+# Consecutive failed windows after which the flight recorder turns itself
+# off for the life of the client.
+_RETRO_MAX_FAILURES = 3
 
 # Consecutive failed polls before the loop stops polling at full rate and
 # backs off exponentially (jittered; see _next_wait_s).
@@ -105,6 +134,19 @@ def _user_profiler_active() -> bool:
     thread-local enabled check; a torch without it reads as idle."""
     from torch.autograd import profiler as _aprof
     return bool(getattr(_aprof, "_is_profiler_enabled", False))
+
+
+class _RetroSkip(Exception):
+    """No window this time, and no failure: step() did not start one (no
+    training step, or a forward capture took the profiler first)."""
+
+
+def _retro_upload_timeout_s(n_bytes: int) -> float:
+    """The wait for the daemon's commit of one retro window: the
+    reference's 2 s, plus the window's bytes at 8 MB/s, a quarter of the
+    30 MB/s a window upload took on an H100 host
+    (scripts/torch_retro_design.py)."""
+    return 2.0 + n_bytes / 8e6
 
 
 class DynologClient:
@@ -172,7 +214,6 @@ class DynologClient:
         self._prof_thread: int | None = None
         self._stopped_prof = None
         self._last_trace_dir: str | None = None
-        self._retro_logged = False
         self.captures_completed = 0
         self._base_config_raw = ""
         self._base_config: dict = {}
@@ -185,6 +226,34 @@ class DynologClient:
         self._phase_lock = threading.Lock()
         self._open_phases: list = []  # (name, t_push), outermost first
         self._phase_spans: collections.deque = collections.deque(maxlen=256)
+        # Flight recorder: the daemon's {window_ms, ring_windows} (None
+        # parks the loop), the loop's thread, started once, and the
+        # scratch dir each window's Chrome trace is exported to.
+        self._retro_cfg: dict | None = None
+        self._retro_thread: threading.Thread | None = None
+        self._retro_seq = 0
+        self._retro_failures = 0
+        self._retro_disabled = False
+        self._retro_scratch: str | None = None
+        # Window handoff with step(), guarded by _capture_lock:
+        # _retro_ms asks step() for one window of that length; step()
+        # starts it (_retro_prof, on _retro_owner's thread), stops it
+        # once due, and hands (profile, t0_ms, t1_ms), or None when the
+        # start failed, to the recorder's thread through _retro_stopped.
+        self._retro_ms: int | None = None
+        self._retro_prof = None
+        self._retro_owner: threading.Thread | None = None
+        self._retro_t0_ms = 0
+        self._retro_end = 0.0
+        self._retro_stopped: queue.Queue = queue.Queue(maxsize=1)
+        # The latest window's stop, export and gzip times (ms) and JSON
+        # bytes; they ride its retro_upload span.
+        self._retro_timing: dict = {}
+        # Profiler handoff gate: set while NO retro window is running.
+        # A forward capture started off the training thread waits on it
+        # (one profiler session per process).
+        self._retro_idle = threading.Event()
+        self._retro_idle.set()
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -211,22 +280,34 @@ class DynologClient:
     def stop(self) -> None:
         self._stop.set()
         self._abort_capture("client stopping")
+        self._end_retro_window()
         if self._thread is not None:
             self._thread.join(timeout=5)
             self._thread = None
+        if self._retro_thread is not None:
+            # The recorder's thread sees the stop event within
+            # _RETRO_SLICE_S, or after the export it is running.
+            self._retro_thread.join(timeout=5)
+            if not self._retro_thread.is_alive() and self._retro_scratch:
+                shutil.rmtree(self._retro_scratch, ignore_errors=True)
+                self._retro_scratch = None
+            self._retro_thread = None
         self._fabric.close()
 
     # -- training-loop hook ------------------------------------------------
 
     def step(self) -> None:
         """Call once per training iteration, on the training thread.
-        Cheap (no syscalls) unless a capture starts or stops here."""
+        Cheap (no syscalls) unless a capture or a flight-recorder window
+        starts or stops here."""
         n = self._tracker.step()
         # Unlocked fast-path peek: worst case one extra step() takes the
         # lock before observing a transition.
-        if self._armed is None and not self._trace_active:
+        if (self._armed is None and not self._trace_active
+                and self._retro_ms is None and self._retro_prof is None):
             return
         with self._capture_lock:
+            self._step_retro()
             cfg = self._armed
             if cfg is not None and not self._trace_active:
                 iterations = int(cfg.get("iterations") or 0)
@@ -255,6 +336,74 @@ class DynologClient:
                 if done:
                     self._stop_trace()
                     self._trace_active = False
+
+    def _step_retro(self) -> None:
+        """step()'s half of the flight recorder, with _capture_lock held:
+        ends the running window once it is due or a forward capture or
+        stop() wants the profiler, and starts the one the recorder's
+        thread asked for while the profiler is free. Fail-soft."""
+        pending = self._capturing or self._armed is not None \
+            or self._trace_active or self._stop.is_set()
+        if self._retro_prof is not None:
+            if pending or time.monotonic() >= self._retro_end:
+                self._stop_retro_window()
+            return
+        if self._retro_ms is None or pending or _user_profiler_active():
+            return
+        from torch.profiler import ProfilerActivity, profile
+        window_ms, self._retro_ms = self._retro_ms, None
+        activity = (ProfilerActivity.CUDA if _cuda_in_use()
+                    else ProfilerActivity.CPU)
+        try:
+            prof = profile(activities=[activity])
+            self._retro_t0_ms = int(time.time() * 1000)
+            prof.start()
+        except Exception:
+            log.debug("retro window start failed", exc_info=True)
+            self._retro_stopped.put_nowait(None)
+            return
+        self._retro_prof = prof
+        self._retro_owner = threading.current_thread()
+        self._retro_end = time.monotonic() + max(window_ms, 1) / 1000.0
+        self._retro_idle.clear()
+
+    def _stop_retro_window(self) -> None:
+        """Stops the running window on the thread that started it and
+        hands it to the recorder's thread. Call with _capture_lock held."""
+        prof, self._retro_prof, self._retro_owner = \
+            self._retro_prof, None, None
+        t_stop = time.perf_counter()
+        try:
+            prof.stop()
+            item = (prof, self._retro_t0_ms, int(time.time() * 1000))
+        except Exception:
+            log.debug("retro window stop failed", exc_info=True)
+            item = None
+        self._retro_timing = {
+            "stop_ms": round((time.perf_counter() - t_stop) * 1e3, 3)}
+        self._retro_idle.set()
+        self._retro_stopped.put_nowait(item)
+
+    def _end_retro_window(self) -> None:
+        """stop()'s end of a running window: stopped here when this is
+        the thread that started it, else by that thread's next step()
+        (a profiler stops only on its own thread), waited for briefly."""
+        deadline = time.monotonic() + 5.0
+        while True:
+            with self._capture_lock:
+                if self._retro_prof is None:
+                    return
+                if self._retro_owner is threading.current_thread():
+                    self._stop_retro_window()
+                    return
+                owner_alive = (self._retro_owner is not None
+                               and self._retro_owner.is_alive())
+            if not owner_alive or time.monotonic() >= deadline:
+                log.warning("flight-recorder window left running: the "
+                            "thread that started it called no step() "
+                            "after stop()")
+                return
+            time.sleep(0.005)
 
     @contextlib.contextmanager
     def phase(self, name: str):
@@ -497,14 +646,143 @@ class DynologClient:
             self._base_config = {}
 
     def _apply_retro_config(self, retro) -> None:
-        """A daemon started with --retro_window_ms advertises its flight
-        recorder in a 'retro' block; this shim has no recorder yet, so
-        the block is logged once and ignored."""
-        if (isinstance(retro, dict) and int(retro.get("window_ms") or 0) > 0
-                and not self._retro_logged):
-            self._retro_logged = True
-            log.info("daemon advertises a flight recorder (%s); not "
-                     "supported by the torch shim, ignoring", retro)
+        """Arms (or parks) the flight-recorder loop from the 'retro'
+        block the daemon attaches to cack/poll replies. A reply without
+        the block (a daemon without --retro_window_ms, or an old daemon)
+        parks the loop; the thread itself is started once and reused."""
+        if (not isinstance(retro, dict)
+                or int(retro.get("window_ms") or 0) <= 0):
+            self._retro_cfg = None
+            return
+        self._retro_cfg = {
+            "window_ms": int(retro["window_ms"]),
+            "ring_windows": int(retro.get("ring_windows") or 8),
+        }
+        if self._retro_thread is None and not self._retro_disabled:
+            self._retro_thread = threading.Thread(
+                target=self._retro_loop, name="dynolog-tpu-retro",
+                daemon=True)
+            self._retro_thread.start()
+
+    def _retro_loop(self) -> None:
+        """Rolling pre-trigger capture: one --retro_window_ms window after
+        another, each streamed into the daemon's retro ring.
+
+        A DEDICATED fabric endpoint carries the uploads: the daemon's
+        assembler keys live streams by sender endpoint, so a retro
+        window must never ride (and displace) the capture thread's
+        forward-trace stream on the shared socket. The loop skips
+        windows while a forward capture or a user's own profiler holds
+        the profiler (one session per process), or while the workload
+        does not step, and fail-soft disables itself after three
+        consecutive window failures."""
+        fabric = FabricClient(self._fabric.daemon_socket)
+        try:
+            while not self._stop.is_set():
+                cfg = self._retro_cfg
+                if cfg is None or self._retro_disabled:
+                    self._stop.wait(0.2)
+                    continue
+                window_ms = cfg["window_ms"]
+                with self._capture_lock:
+                    busy = (self._capturing or self._trace_active
+                            or _user_profiler_active())
+                if not busy:
+                    try:
+                        win = self._retro_capture_window(window_ms)
+                    except _RetroSkip:
+                        busy = True
+                    except Exception:
+                        log.debug("retro window capture failed",
+                                  exc_info=True)
+                        win = None
+                if busy:
+                    # The ring just has a gap here; a forward capture
+                    # covers it.
+                    self.spans.incr("retro_windows_skipped")
+                    self._stop.wait(min(window_ms / 1000.0, 0.2))
+                    continue
+                if self._stop.is_set():
+                    break
+                if win is None:
+                    self._retro_failures += 1
+                    if self._retro_failures >= _RETRO_MAX_FAILURES:
+                        self._retro_disabled = True
+                        self.spans.incr("retro_disabled")
+                        log.warning(
+                            "flight recorder disabled after %d failed "
+                            "window captures", self._retro_failures)
+                    continue
+                self._retro_failures = 0
+                data, t0_ms, t1_ms = win
+                seq = self._retro_seq
+                self._retro_seq += 1
+                with self.spans.span("retro_upload", bytes=len(data),
+                                     **self._retro_timing) as s:
+                    uploaded = fabric.upload_retro(
+                        self.job_id, self.pid, seq, t0_ms, t1_ms, data,
+                        timeout_s=_retro_upload_timeout_s(len(data))
+                    ) is not None
+                    s["ok"] = uploaded
+                self.spans.incr("retro_windows_captured")
+                if not uploaded:
+                    # Daemon down or degraded: windows land again when it
+                    # comes back; the loop itself never stops for it.
+                    self.spans.incr("retro_upload_failures")
+        finally:
+            with self._capture_lock:
+                self._retro_ms = None
+            fabric.close()
+
+    def _retro_capture_window(self, window_ms: int):
+        """Asks step() for one window, waits for step() to start and stop
+        it on the training thread, then exports and gzips it here.
+        Returns (gzipped_chrome_trace, t0_ms, t1_ms), or None when the
+        profiler served no trace; raises _RetroSkip when step() started
+        no window within _STEP_WAIT_S or a forward capture came first.
+        Overridden by the test harness's FakeCaptureClient."""
+        with self._capture_lock:
+            self._retro_ms = window_ms
+        start_by = time.monotonic() + _STEP_WAIT_S
+        while True:
+            try:
+                item = self._retro_stopped.get(timeout=_RETRO_SLICE_S)
+                break
+            except queue.Empty:
+                pass
+            # step() hands a window over under the lock, so an empty
+            # queue and no running window here means none is coming.
+            with self._capture_lock:
+                if (self._retro_prof is None and self._retro_stopped.empty()
+                        and (self._stop.is_set() or self._capturing
+                             or self._trace_active
+                             or time.monotonic() >= start_by)):
+                    self._retro_ms = None
+                    raise _RetroSkip()
+        if item is None:
+            return None
+        prof, t0_ms, t1_ms = item
+        if self._retro_scratch is None:
+            self._retro_scratch = tempfile.mkdtemp(prefix="dtpu_retro_")
+        path = os.path.join(self._retro_scratch, "window.pt.trace.json")
+        t_export = time.perf_counter()
+        prof.export_chrome_trace(path)
+        with open(path, "rb") as f:
+            data = f.read()
+        os.unlink(path)
+        if not data:
+            return None
+        t_gzip = time.perf_counter()
+        # zlib releases the interpreter lock; a tenth of the bytes cuts
+        # the upload's Python work (base64, one datagram per 32 KiB) by
+        # as much.
+        packed = gzip.compress(data, compresslevel=1)
+        self._retro_timing = {
+            **self._retro_timing,
+            "export_ms": round((t_gzip - t_export) * 1e3, 3),
+            "gzip_ms": round((time.perf_counter() - t_gzip) * 1e3, 3),
+            "json_bytes": len(data)}
+        return packed, t0_ms, t1_ms
 
     def _push_metrics(self) -> None:
         with self.spans.span("telemetry_push") as s:
@@ -681,6 +959,12 @@ class DynologClient:
         return os.path.join(base, f"{_socket.gethostname()}_{self.pid}")
 
     def _start_trace(self, cfg: dict) -> None:
+        # The bounded handoff gate of the reference shim: a retro window
+        # still running owns the profiler session. In step() the window
+        # has just been stopped; off the training thread (no step())
+        # none runs unless the workload stopped stepping mid-window.
+        if not self._retro_idle.wait(timeout=2.0):
+            log.warning("retro window still in flight; starting anyway")
         from torch.profiler import ProfilerActivity, profile
         if _user_profiler_active():
             raise RuntimeError(

@@ -1,22 +1,23 @@
 """Mini-fleet harness: N local daemons + N registered fake-capture
 clients playing N pod hosts on one machine.
 
-The port's copy of ``dynolog_tpu/fleet/minifleet.py`` — spawn, wait,
-teardown and token files — with the fake clients built on the torch
-shim. The relay-tree, seeded-topology, ICI-ring and restart helpers
-stay with the JAX package until the port's tests need them. Shared by ``tests/test_torch_fleet.py``
-and the RPC fan-out tests, so they cannot drift apart in spawn flags,
+The port's copy of ``dynolog_tpu/fleet/minifleet.py``, with the fake
+clients built on the torch shim. Shared by the port's fleet, fan-out and
+flight-recorder tests, so they cannot drift apart in spawn flags,
 registration protocol, or timing keys.
 """
 
 from __future__ import annotations
 
 import os
+import shutil
 import signal
+import socket
 import subprocess
 import time
 
 from dynolog_tpu_torch.client import DynologClient
+from dynolog_tpu_torch.utils import faultline
 from dynolog_tpu_torch.utils.procutil import wait_for_stderr
 from dynolog_tpu_torch.utils.rpc import DynoClient
 
@@ -31,7 +32,8 @@ class FakeCaptureClient(DynologClient):
     ``_finish_trace`` has no stopped profile to export: the fake counts
     the capture and sends the manifest in ``_stop_trace`` instead.
     ``write_fake_trace=True`` drops a placeholder ``.pt.trace.json``
-    where the real capture would export one."""
+    where the real capture would export one, and its flight-recorder
+    windows are fake payloads over real wall-clock spans."""
 
     def __init__(self, *args, write_fake_trace: bool = False, **kwargs):
         super().__init__(*args, **kwargs)
@@ -69,19 +71,40 @@ class FakeCaptureClient(DynologClient):
         self.captures_completed += 1
         self._send_trace_manifest()
 
+    def _retro_capture_window(self, window_ms):
+        # Flight-recorder window without torch.profiler: real wall-clock
+        # span (the merged report's pre-trigger timeline uses these
+        # stamps), fake bytes. Payload is unique per window so
+        # ring-eviction and dedupe tests can tell windows apart.
+        t0_ms = int(time.time() * 1000)
+        time.sleep(max(window_ms, 1) / 1000.0)
+        t1_ms = int(time.time() * 1000)
+        data = (f"retro-{self._fabric.endpoint_name}-{self._retro_seq}"
+                .encode() * 64)
+        return data, t0_ms, t1_ms
 
-def _spawn_daemon(daemon_bin, socket_name, daemon_args=()):
-    """One daemon on an ephemeral RPC port with slow collector
-    cadences; returns (Popen, port) once the daemon has printed its
-    bound port. Raises on a daemon that exits or never prints one."""
+
+def _spawn_daemon(daemon_bin, socket_name, daemon_args=(), port=0,
+                  env=None):
+    """One daemon with slow collector cadences; returns (Popen, port)
+    once the daemon has printed its bound port. Raises on a daemon that
+    exits or never prints one. ``port`` defaults to 0 (ephemeral);
+    seeded topologies pass a pre-reserved fixed port so the node's
+    identity matches its seed-list entry. ``env`` overlays os.environ —
+    chaos tests arm faultline scopes per daemon through it."""
+    run_env = None
+    if env:
+        run_env = dict(os.environ)
+        run_env.update(env)
     proc = subprocess.Popen(
-        [str(daemon_bin), "--port", "0",
+        [str(daemon_bin), "--port", str(port),
          "--kernel_monitor_interval_s", "3600",
          "--tpu_monitor_interval_s", "3600",
          "--enable_perf_monitor=false",
          "--ipc_socket_name", socket_name,
          *daemon_args],
-        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+        text=True, env=run_env)
     m, buf = wait_for_stderr(proc, r"rpc: listening on port (\d+)")
     if not m:
         try:
@@ -113,6 +136,76 @@ def auth_args(token_file):
     return ("--fleet_token_file", str(token_file))
 
 
+def free_ports(n):
+    """n distinct currently-free TCP ports. All sockets are held open
+    until every port is picked, then released together — the usual
+    bind-0 trick, raceable in principle but reliable for test spawns
+    that bind the ports right back."""
+    socks = []
+    try:
+        for _ in range(n):
+            s = socket.socket()
+            s.bind(("127.0.0.1", 0))
+            socks.append(s)
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def seed_rank(s: str) -> int:
+    """FNV-1a 64 over the id string — the exact rendezvous hash the
+    daemon uses (native twin: fleettree/FleetTree.cpp fleetHash64), so
+    tests and bench can predict which seed is root and which seed a
+    node parents to without asking the daemons."""
+    h = 14695981039346656037
+    for b in s.encode():
+        h = ((h ^ b) * 1099511628211) & 0xFFFFFFFFFFFFFFFF
+    return h
+
+
+def expected_root(seeds):
+    """The seed every node converges on as root: highest seed_rank
+    (hash ties break toward the lexicographically smaller id, matching
+    the native candidate order)."""
+    return sorted(seeds, key=lambda s: (-seed_rank(s), s))[0]
+
+
+def spawn_seeded(daemon_bin, socket_prefix, seeds=3, leaves=0,
+                 daemon_args=(), host=None, env=None):
+    """A self-forming topology: no --parent hand-wiring anywhere. Picks
+    ``seeds`` free ports up front, builds the ``--fleet_seeds`` CSV from
+    them, then spawns the seed daemons on those FIXED ports and
+    ``leaves`` more daemons on ephemeral ports — every one with only the
+    seed list. The tree shape (which seed is root, who parents where) is
+    entirely the daemons' rendezvous choice.
+
+    ``host`` defaults to this machine's hostname, which must resolve
+    locally (single-machine harness) so the daemons both recognize the
+    seed entries as themselves and can dial each other. Returns
+    (daemons, seed_list) where daemons is [(Popen, port)] seeds-first
+    in seed-list order."""
+    if host is None:
+        host = socket.gethostname()
+    ports = free_ports(seeds)
+    seed_list = [f"{host}:{p}" for p in ports]
+    csv = ",".join(seed_list)
+    daemons = []
+    try:
+        for i, p in enumerate(ports):
+            daemons.append(_spawn_daemon(
+                daemon_bin, f"{socket_prefix}seed{i}",
+                (*daemon_args, "--fleet_seeds", csv), port=p, env=env))
+        for i in range(leaves):
+            daemons.append(_spawn_daemon(
+                daemon_bin, f"{socket_prefix}leaf{i}",
+                (*daemon_args, "--fleet_seeds", csv), env=env))
+    except Exception:
+        teardown(daemons, [])
+        raise
+    return daemons, seed_list
+
+
 def spawn_daemons(daemon_bin, n, socket_prefix, daemon_args=()):
     """Daemons only, no clients — fleetstatus tests/bench inject history
     via putHistory instead of registering capture shims. Returns
@@ -123,6 +216,106 @@ def spawn_daemons(daemon_bin, n, socket_prefix, daemon_args=()):
             daemons.append(
                 _spawn_daemon(daemon_bin, f"{socket_prefix}{i}",
                               daemon_args))
+    except Exception:
+        teardown(daemons, [])
+        raise
+    return daemons
+
+
+def ici_ring_args(n, index):
+    """The ``daemon_args`` fragment that topologizes daemon ``index`` of
+    an n-host ring (link 0 toward the previous neighbor, link 1 toward
+    the next; see native/src/common/IciTopology.h for the edge naming
+    convention fleetstatus scores against)."""
+    return ("--ici_topology", f"ring:{n}", "--ici_ring_index", str(index))
+
+
+def ring_link_series(n, base_bps=1_000_000.0, *, points=8,
+                     interval_s=5.0, end_ms=None, jitter_pct=2.0):
+    """Per-host per-link ICI history for an n-host ring, ready for
+    ``DynoClient.put_history``: returns a list of n dicts (one per ring
+    index) mapping ``ici_link<k>_{tx,rx,stalls}...`` keys to
+    ``[(ts_ms, value), ...]`` samples.
+
+    Both endpoints of ring edge e (host e's link 1 and host e+1's
+    link 0) see the SAME edge rate — base_bps shaped by a deterministic
+    per-edge jitter within ±jitter_pct% (seed_rank-derived, so healthy
+    edges differ enough that the fleet MAD never degenerates to zero
+    and the robust-z fallback can't saturate; see fleetstatus module
+    docstring).
+
+    Honors the ``ici_link`` faultline scope in lockstep with the native
+    TpuMonitor poll path: ``ici_link.degrade_link=<edge>`` scales that
+    edge's tx/rx on BOTH endpoints by ``ici_link.degrade_factor`` and
+    adds ``ici_link.link_stalls`` stalls/s — so a topology test degrades
+    one link with the same DYNOLOG_TPU_FAULTS spec a live daemon would.
+    """
+    if end_ms is None:
+        end_ms = int(time.time() * 1000)
+    faults = faultline.for_scope("ici_link")
+    degrade_edge = int(faults.value("degrade_link", -1)) if faults else -1
+    factor = faults.value("degrade_factor", 1.0) if faults else 1.0
+    stalls = faults.value("link_stalls", 0.0) if faults else 0.0
+
+    def edge_rate(e):
+        # Deterministic per-edge shaping in [-jitter_pct, +jitter_pct]%.
+        frac = (seed_rank(f"edge{e}") % 10_000) / 10_000.0
+        rate = base_bps * (1.0 + (2.0 * frac - 1.0) * jitter_pct / 100.0)
+        return rate * factor if e == degrade_edge else rate
+
+    stamps = [end_ms - (points - 1 - i) * int(interval_s * 1000)
+              for i in range(points)]
+    out = []
+    for i in range(n):
+        series = {}
+        # link 0 carries edge (i-1)%n, link 1 carries edge i.
+        for link, edge in ((0, (i - 1) % n), (1, i)):
+            rate = edge_rate(edge)
+            s = stalls if edge == degrade_edge else 0.0
+            for kind, val in (("tx_bytes_per_s", rate),
+                              ("rx_bytes_per_s", rate),
+                              ("stalls_per_s", s)):
+                series[f"ici_link{link}_{kind}.dev0"] = [
+                    (ts, val) for ts in stamps]
+        out.append(series)
+    return out
+
+
+def inject_ring_links(daemons, series):
+    """putHistory every host's ring_link_series into its daemon (which
+    must run with --enable_history_injection). daemons[i] pairs with
+    series[i] — ring index i is daemons[i] by convention."""
+    for (_, port), host_series in zip(daemons, series):
+        client = DynoClient(port=port)
+        for key, samples in host_series.items():
+            client.put_history(key, samples)
+
+
+def spawn_tree(daemon_bin, socket_prefix, leaves=2, daemon_args=(),
+               relays=1):
+    """A 2-level relay tree on one machine: one root, `relays` mid-tier
+    relay daemon(s) registered to it via --parent, and `leaves` leaf
+    daemons per relay registered to their relay. Returns [(Popen, port)]
+    root-first, then relays, then leaves (teardown with
+    ``teardown(daemons, [])``). Extra ``daemon_args`` apply to every
+    node; fleettree tests pass fast --fleet_report_interval_s /
+    --fleet_stale_after_s here."""
+    daemons = []
+    try:
+        daemons.append(
+            _spawn_daemon(daemon_bin, f"{socket_prefix}root", daemon_args))
+        root_port = daemons[0][1]
+        relay_ports = []
+        for r in range(relays):
+            daemons.append(_spawn_daemon(
+                daemon_bin, f"{socket_prefix}relay{r}",
+                (*daemon_args, "--parent", f"localhost:{root_port}")))
+            relay_ports.append(daemons[-1][1])
+        for r, relay_port in enumerate(relay_ports):
+            for i in range(leaves):
+                daemons.append(_spawn_daemon(
+                    daemon_bin, f"{socket_prefix}r{r}leaf{i}",
+                    (*daemon_args, "--parent", f"localhost:{relay_port}")))
     except Exception:
         teardown(daemons, [])
         raise
@@ -193,6 +386,45 @@ def kill_daemon(daemons, i):
     except OSError:
         pass
     proc.wait()
+
+
+def _storage_dir_from_args(daemon_args):
+    """The --storage_dir value in a daemon arg list (either
+    ``--storage_dir <d>`` or ``--storage_dir=<d>``), or None."""
+    args = list(daemon_args)
+    for j, a in enumerate(args):
+        if a == "--storage_dir" and j + 1 < len(args):
+            return args[j + 1]
+        if a.startswith("--storage_dir="):
+            return a.split("=", 1)[1]
+    return None
+
+
+def restart_daemon(daemons, i, daemon_bin, socket_prefix, daemon_args=(),
+                   preserve_storage=True):
+    """Chaos helper: the supervisor half of a kill/restart cycle — kills
+    daemon i if still up, then brings up a FRESH daemon process on the
+    same fabric socket (new instance epoch, empty registry, new RPC
+    port). daemons[i] is replaced in place; returns the new (proc, port).
+    The already-running client on that socket is deliberately untouched:
+    the point of the exercise is watching it detect the epoch change and
+    re-register on its own.
+
+    ``preserve_storage`` (default on) keeps the daemon's --storage_dir
+    across the restart — the real host-reboot scenario, where the
+    durable tier recovers events/history. Pass False to model a host
+    re-imaged from scratch: the storage dir is wiped before the new
+    instance starts."""
+    proc, _ = daemons[i]
+    if proc.poll() is None:
+        kill_daemon(daemons, i)
+    if not preserve_storage:
+        storage_dir = _storage_dir_from_args(daemon_args)
+        if storage_dir:
+            shutil.rmtree(storage_dir, ignore_errors=True)
+    daemons[i] = _spawn_daemon(daemon_bin, f"{socket_prefix}{i}",
+                               daemon_args)
+    return daemons[i]
 
 
 def capture_windows(clients):

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import argparse
 import glob
+import gzip
 import json
 import os
 import sys
@@ -149,6 +150,21 @@ def retro_events(retro: list[dict], base_pid: int) -> list[dict]:
                     "args": {"host": host, "seq": w.get("seq")},
                 })
     return events
+
+
+def read_retro_window(path: str) -> dict:
+    """One exported flight-recorder window, decoded to its Chrome trace.
+    The daemon names every window ``win-<seq>-….xpb`` whatever it holds
+    (native/src/storage/RetroStore.cpp:windowFilename), so the content
+    says what it is: gzip's magic bytes, or the ``{`` of a JSON trace.
+    Raises ValueError on anything else."""
+    with open(path, "rb") as f:
+        raw = f.read()
+    if raw[:2] == b"\x1f\x8b":
+        raw = gzip.decompress(raw)
+    if raw.lstrip()[:1] != b"{":
+        raise ValueError(f"{path}: not a Chrome trace window")
+    return json.loads(raw)
 
 
 def read_trigger(log_dir: str) -> dict | None:

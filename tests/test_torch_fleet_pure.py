@@ -12,10 +12,14 @@ fleet modules are copies, so any difference is a fault:
                where the reference finds .xplane.pb)
   unitrace     build_config byte-identical
   eventlog     chrome_instants and merge_into_report byte-identical
+  minifleet    the seeded-topology and ICI-ring helpers return equal
+               values (ring_link_series with and without an ici_link
+               fault armed), read_retro_window decodes both encodings
 """
 
 import argparse
 import copy
+import gzip
 import json
 import os
 
@@ -24,11 +28,13 @@ import pytest
 
 from dynolog_tpu.fleet import eventlog as j_eventlog
 from dynolog_tpu.fleet import fleetstatus as j_fleetstatus
+from dynolog_tpu.fleet import minifleet as j_minifleet
 from dynolog_tpu.fleet import sketch as j_sketch
 from dynolog_tpu.fleet import trace_report as j_report
 from dynolog_tpu.fleet import unitrace as j_unitrace
 from dynolog_tpu_torch.fleet import eventlog as t_eventlog
 from dynolog_tpu_torch.fleet import fleetstatus as t_fleetstatus
+from dynolog_tpu_torch.fleet import minifleet as t_minifleet
 from dynolog_tpu_torch.fleet import sketch as t_sketch
 from dynolog_tpu_torch.fleet import trace_report as t_report
 from dynolog_tpu_torch.fleet import unitrace as t_unitrace
@@ -436,3 +442,64 @@ def test_eventlog_merge_byte_identical(seed):
         mod.merge_into_report(report, copy.deepcopy(records))
         out[name] = _dumps(report)
     assert out["port"] == out["ref"]
+
+
+@pytest.mark.parametrize("ident", [
+    "", "a", "host-0:8080", "tpu-v5e-17.example.internal:1778", "é|x"])
+def test_seed_rank_equal(ident):
+    assert t_minifleet.seed_rank(ident) == j_minifleet.seed_rank(ident)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_expected_root_equal(seed):
+    rng = np.random.default_rng(seed)
+    seeds = [f"host{int(i)}:{int(p)}" for i, p in zip(
+        rng.integers(0, 1000, 7), rng.integers(1024, 65536, 7))]
+    assert t_minifleet.expected_root(seeds) == \
+        j_minifleet.expected_root(seeds)
+
+
+@pytest.mark.parametrize("n", [2, 4, 16])
+def test_ici_ring_args_equal(n):
+    for i in range(n):
+        assert t_minifleet.ici_ring_args(n, i) == \
+            j_minifleet.ici_ring_args(n, i)
+
+
+@pytest.mark.parametrize("faults", [
+    "", "ici_link.degrade_link=1,ici_link.degrade_factor=0.4,"
+        "ici_link.link_stalls=5"])
+def test_ring_link_series_equal(monkeypatch, faults):
+    """Both packages read the ici_link fault scope from the environment;
+    the series must agree with and without an edge degraded."""
+    monkeypatch.setenv("DYNOLOG_TPU_FAULTS", faults)
+    kw = dict(points=5, interval_s=2.0, end_ms=1_760_000_000_000,
+              jitter_pct=3.0)
+    got = t_minifleet.ring_link_series(4, 2_000_000.0, **kw)
+    want = j_minifleet.ring_link_series(4, 2_000_000.0, **kw)
+    assert got == want
+    if faults:
+        assert got[1]["ici_link1_stalls_per_s.dev0"][0][1] == 5
+
+
+@pytest.mark.parametrize("args", [
+    (), ("--storage_dir", "/s/a"), ("--x", "1", "--storage_dir=/s/b"),
+    ("--storage_dir",)])
+def test_storage_dir_from_args_equal(args):
+    assert t_minifleet._storage_dir_from_args(args) == \
+        j_minifleet._storage_dir_from_args(args)
+
+
+def test_read_retro_window_sniffs_content(tmp_path):
+    """A window's name says nothing of its content (the daemon names all
+    of them win-....xpb): plain JSON and gzipped JSON both decode, and
+    anything else is refused."""
+    trace = {"traceEvents": [{"ph": "X", "cat": "kernel", "name": "k"}]}
+    raw = json.dumps(trace).encode()
+    for name, data in (("win-0-1-2-3.xpb", raw),
+                       ("win-1-2-3-3.xpb", gzip.compress(raw))):
+        (tmp_path / name).write_bytes(data)
+        assert t_report.read_retro_window(str(tmp_path / name)) == trace
+    (tmp_path / "win-2-3-4-3.xpb").write_bytes(b"retro-fake" * 8)
+    with pytest.raises(ValueError):
+        t_report.read_retro_window(str(tmp_path / "win-2-3-4-3.xpb"))

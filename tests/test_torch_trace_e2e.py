@@ -324,7 +324,10 @@ def test_user_profiler_makes_capture_fail_soft(trace_daemon, client,
         cfg = {"type": "xplane", "log_dir": str(tmp_path / "busy"),
                "duration_ms": 200}
         rpc.set_trace_config(job_id="42", config=cfg)
-        _wait_for(lambda: client._capturing, what="capture armed")
+        # The shim stamps config_received as it arms the capture; the
+        # armed state itself can last less than one poll of this loop.
+        _wait_for(lambda: "config_received" in client.trace_timing,
+                  what="capture armed")
         _wait_for(lambda: not client._capturing, what="capture dropped")
         assert client.captures_completed == 0
         assert not _traces(tmp_path / "busy")

@@ -199,7 +199,8 @@ _BANNED = frozenset({"jax", "jaxlib", "optax", "dynolog_tpu"})
 _PORT_SOURCES = sorted(
     str(p.relative_to(REPO))
     for p in [*(REPO / "dynolog_tpu_torch").rglob("*.py"),
-              REPO / "chip_smoke.py"])
+              REPO / "chip_smoke.py",
+              REPO / "scripts" / "torch_retro_design.py"])
 
 
 def _banned_imports(source: str, filename: str) -> list[str]:
