@@ -46,6 +46,17 @@ without the final line:
              capture, the merged report's metadata.retro and a decoded
              window's CUDA kernels; then ms/step with the ring on and off
              in rotating windows. A disabled or empty ring fails it.
+  parallel   the parallel workloads over NCCL, one rank per visible card
+             (NCCL refuses two ranks on one card): the flagship step with
+             ring attention on mesh_shape(n), MoeConfig() on
+             moe_mesh_shape(n, 8) and PipeConfig() on (n, 1), every one
+             at batch 8 x 512 (one card: a (1, 1, 1) mesh, one expert
+             rank and one pipeline stage). Each workload's first loss
+             against the unsharded model of the same weights, ms/step,
+             a falling loss; one `dyno gputrace` of rank 0's sharded
+             flagship step under the client shim, with its NCCL kernels
+             counted. `python3 chip_smoke.py --parallel-only` runs the
+             build, the daemon and this phase alone (the four-card run).
 
 The port has no hand-written kernel (the JAX package has no Pallas
 kernel), so the kernel table it prints is empty. The last line is the
@@ -55,6 +66,7 @@ device record `{"ok": true, "device": {...}}`.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import faulthandler
 import glob
 import hashlib
@@ -72,11 +84,20 @@ import threading
 import time
 
 import torch
+import torch.distributed as dist
 
 from dynolog_tpu_torch.client import DynologClient
 from dynolog_tpu_torch.fleet import eventlog, trace_report, unitrace
-from dynolog_tpu_torch.models.train import make_train_step, run_annotated_loop
+from dynolog_tpu_torch.models import moe, pipeline
+from dynolog_tpu_torch.models.train import (
+    loss_fn,
+    make_sharded_train_step,
+    make_train_step,
+    run_annotated_loop,
+)
 from dynolog_tpu_torch.models.transformer import ModelConfig, Transformer
+from dynolog_tpu_torch.parallel.mesh import make_mesh, mesh_shape
+from dynolog_tpu_torch.utils.cpumesh import run_ranks
 from dynolog_tpu_torch.utils.procutil import wait_for_stderr
 from dynolog_tpu_torch.utils.rpc import DynoClient
 
@@ -105,6 +126,14 @@ RETRO_ROUNDS = 4
 # tensorcore_duty_cycle_pct could fire on real readings before the ring
 # is primed.
 RETRO_METRIC = "chip_smoke_anomaly"
+PARALLEL_JOB = "chip_smoke_parallel"
+PARALLEL_WARMUP = 2
+PARALLEL_STEPS = 8
+PARALLEL_TIMEOUT_S = 300
+# Sharded first loss against the unsharded model of the same weights,
+# relative: tests/test_model.py's bf16 sharded-loss bound for the
+# flagship, the JAX MoE/pipeline tests' 2e-2 for the others.
+PARALLEL_REL = {"flagship": 5e-3, "moe": 2e-2, "pipe": 2e-2}
 
 
 class SmokeError(RuntimeError):
@@ -330,6 +359,16 @@ def run_capture(client, trainer, trigger, log_dir, timeout_s=120):
                          f"train steps={len(trainer.losses)}") from None
     trainer.alive_check()
     return t_rpc, dict(client.trace_timing)
+
+
+def trigger_gputrace(dyno_bin, port, job, log_dir):
+    out = subprocess.run(
+        [str(dyno_bin), "--port", str(port), "gputrace",
+         "--job_id", job, "--duration_ms", str(TRACE_MS),
+         "--log_dir", log_dir],
+        capture_output=True, text=True, timeout=30)
+    check(out.returncode == 0 and "Triggered 1" in out.stdout,
+          f"dyno gputrace: {out.stdout} {out.stderr}")
 
 
 def parity_check(tag):
@@ -769,6 +808,187 @@ def retro_phase(daemon_bin, step_fn, make_batch, tag):
     print(f"retro: phase took {time.monotonic() - t_phase:.1f} s", flush=True)
 
 
+def _timed_steps(step, tokens, n):
+    """n steps, each loss read back; (losses, ms/step)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [float(step(tokens)) for _ in range(n)]
+    torch.cuda.synchronize()
+    return losses, (time.perf_counter() - t0) * 1e3 / n
+
+
+def _batch(vocab_size, generator):
+    return torch.randint(0, vocab_size, (BATCH, SEQ),
+                         generator=generator).cuda()
+
+
+def _capture_steps(step, tokens, ready_path):
+    """Steps every rank until rank 0's client has completed one capture
+    (or 120 s pass): rank 0 trains under the client shim, registered as
+    PARALLEL_JOB, creates ``ready_path`` once its client has seen a
+    step() (a config that arrives before any step() is captured on the
+    client's own thread, without the training thread's ops), and
+    broadcasts whether to go on after every step."""
+    rank = dist.get_rank()
+    client = None
+    if rank == 0:
+        client = DynologClient(job_id=PARALLEL_JOB, poll_interval_s=0.5,
+                               metrics_interval_s=1.0).start()
+    go = torch.ones(1, device="cuda")
+    deadline = time.monotonic() + 120
+    steps = 0
+    try:
+        while go.item():
+            run_annotated_loop(step, lambda i: tokens, 1, client=client)
+            steps += 1
+            if client is not None and steps == 2:
+                pathlib.Path(ready_path).touch()
+            if client is not None and (client.captures_completed >= 1
+                                       or time.monotonic() > deadline):
+                go.zero_()
+            dist.broadcast(go, src=0)
+    finally:
+        if client is not None:
+            client.stop()
+    return {"tid": threading.get_native_id(), "steps": steps,
+            "captures": client.captures_completed if client else None}
+
+
+def parallel_rank(ready_path) -> dict:
+    """One NCCL rank of the parallel phase: the three workloads at their
+    widths, batch 8 x 512, from seeded weights. Returns per workload the
+    mesh, the first losses, rank 0's unsharded loss of the same weights,
+    the last loss and ms/step; and the capture of the flagship step."""
+    n = dist.get_world_size()
+    gen = lambda seed: torch.Generator().manual_seed(seed)
+    out = {}
+
+    def run(name, mesh, step, unsharded):
+        ref = None
+        if dist.get_rank() == 0:
+            with torch.no_grad():
+                ref = float(unsharded())
+            torch.cuda.empty_cache()
+        first, _ = _timed_steps(step, tokens, PARALLEL_WARMUP)
+        losses, ms = _timed_steps(step, tokens, PARALLEL_STEPS)
+        out[name] = {"mesh": dict(zip(mesh.mesh_dim_names,
+                                      mesh.mesh.shape)),
+                     "first": first[0], "unsharded": ref,
+                     "last": losses[-1], "ms": ms,
+                     "finite": all(map(math.isfinite, first + losses))}
+
+    tokens = _batch(FLAGSHIP.vocab_size, gen(1))
+    mesh = make_mesh("cuda", mesh_shape(n))
+    cfg = dataclasses.replace(FLAGSHIP, seq_axis="seq")
+    _, _, step = make_sharded_train_step(cfg, mesh, "cuda", gen(0))
+    run("flagship", mesh, step, lambda: loss_fn(
+        Transformer(FLAGSHIP, "cuda", gen(0)), tokens))
+    # The unsharded step beside it on rank 0, in windows alternating
+    # with the sharded step's: plain, sharded, sharded, plain. The other
+    # ranks run the sharded windows only, meeting rank 0 in them.
+    windows = {"plain": [], "sharded": []}
+    plain = None
+    if dist.get_rank() == 0:
+        _, _, plain = make_train_step(FLAGSHIP, "cuda", gen(0))
+        _timed_steps(plain, tokens, PARALLEL_WARMUP)
+    for side in ("plain", "sharded", "sharded", "plain"):
+        if side == "sharded" or plain is not None:
+            windows[side].append(_timed_steps(
+                plain if side == "plain" else step, tokens,
+                PARALLEL_STEPS)[1])
+    out["flagship"]["windows_ms"] = windows
+    del plain
+    out["capture"] = _capture_steps(step, tokens, ready_path)
+    del step
+
+    moe_cfg = moe.MoeConfig()
+    tokens = _batch(moe_cfg.vocab_size, gen(1))
+    mesh = moe.make_moe_mesh("cuda", moe_cfg.n_experts)
+    _, _, step = moe.make_moe_workload(moe_cfg, mesh, "cuda", gen(2))
+    run("moe", mesh, step, lambda: moe.moe_loss(
+        moe.MoeModel(moe_cfg, "cuda", gen(2)), tokens))
+    del step
+
+    # One stage per rank: PipeConfig()'s four stages on four cards, one
+    # stage on one card.
+    pipe_cfg = dataclasses.replace(pipeline.PipeConfig(), n_stages=n)
+    tokens = _batch(pipe_cfg.vocab_size, gen(1))
+    mesh = pipeline.make_pipe_mesh("cuda", n)
+    _, _, step = pipeline.make_pipe_workload(pipe_cfg, mesh, "cuda", gen(3))
+    run("pipe", mesh, step, lambda: pipeline.pipe_loss(
+        pipeline.PipeModel(pipe_cfg, "cuda", gen(3)), tokens))
+    return out
+
+
+def parallel_phase(rpc, dyno_bin, port, tag):
+    """The parallel workloads on NCCL ranks, one per visible card, with
+    one gputrace of rank 0's sharded flagship step."""
+    t_phase = time.monotonic()
+    n = torch.cuda.device_count()
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    ready = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_ready_"),
+                         "stepping")
+    got = {}
+
+    def ranks():
+        try:
+            got["results"] = run_ranks(n, parallel_rank, ready,
+                                       backend="nccl",
+                                       timeout_s=PARALLEL_TIMEOUT_S)
+        except Exception as e:  # re-raised on this thread below
+            got["error"] = e
+
+    thread = threading.Thread(target=ranks, name="parallel", daemon=True)
+    thread.start()
+    wait_for(lambda: os.path.exists(ready) or not thread.is_alive(),
+             PARALLEL_TIMEOUT_S, "rank 0 stepping under the client")
+    check(PARALLEL_JOB in rpc.trace_registry().get("jobs", {})
+          or not thread.is_alive(), "parallel: rank 0 is not registered")
+    if thread.is_alive():
+        trigger_gputrace(dyno_bin, port, PARALLEL_JOB, log_dir)
+    thread.join(timeout=PARALLEL_TIMEOUT_S)
+    check(not thread.is_alive(), "parallel: ranks did not finish")
+    if "error" in got:
+        raise SmokeError(f"parallel: {got['error']}")
+    res = got["results"]
+    cap = res[0]["capture"]
+    check(cap["captures"] >= 1, f"parallel: no capture on rank 0: {cap}")
+    check_trace(log_dir, cap["tid"], "parallel gputrace")
+    with open(find_traces(log_dir), "rb") as f:
+        events = json.load(f)["traceEvents"]
+    nccl = sorted({e["name"] for e in events if e.get("cat") == "kernel"
+                   and "nccl" in str(e.get("name", "")).lower()})
+    print(f"parallel [{tag}] gputrace of rank 0's sharded flagship step "
+          f"after {cap['steps']} steps: {len(nccl)} distinct NCCL "
+          f"kernels {nccl[:6]}", flush=True)
+    for name in ("flagship", "moe", "pipe"):
+        r0 = res[0][name]
+        rel = abs(r0["first"] - r0["unsharded"]) / abs(r0["unsharded"])
+        for rank, r in enumerate(res):
+            w = r[name]
+            check(w["finite"], f"parallel {name} rank {rank}: non-finite")
+            check(w["first"] == r0["first"] and w["last"] == r0["last"],
+                  f"parallel {name}: ranks disagree {w} vs {r0}")
+        check(rel <= PARALLEL_REL[name],
+              f"parallel {name}: first loss {r0['first']} vs unsharded "
+              f"{r0['unsharded']}, relative {rel:.3e}")
+        check(r0["last"] < r0["first"],
+              f"parallel {name}: loss did not fall {r0}")
+        print(f"parallel [{tag}] {name} {n} NCCL rank(s) mesh {r0['mesh']} "
+              f"batch {BATCH}x{SEQ}: {r0['ms']:.3f} ms/step over "
+              f"{PARALLEL_STEPS} steps (rank 0; after {PARALLEL_WARMUP} "
+              f"warm-up), first loss {r0['first']:.5f} vs unsharded "
+              f"{r0['unsharded']:.5f} (rel {rel:.2e}, limit "
+              f"{PARALLEL_REL[name]}), last {r0['last']:.5f}", flush=True)
+    win = res[0]["flagship"]["windows_ms"]
+    print(f"parallel [{tag}] flagship ms/step windows on rank 0 "
+          f"(plain, sharded, sharded, plain; {PARALLEL_STEPS} steps each): "
+          f"unsharded {[round(x, 3) for x in win['plain']]} sharded "
+          f"{[round(x, 3) for x in win['sharded']]}", flush=True)
+    print(f"parallel: phase took {time.monotonic() - t_phase:.1f} s",
+          flush=True)
+
+
 def main() -> int:
     if sys.argv[1:] == ["--fleet-worker"]:
         return fleet_worker()
@@ -793,6 +1013,12 @@ def main() -> int:
     os.environ["DYNOLOG_TPU_SOCKET_DIR"] = tempfile.mkdtemp(
         prefix="chip_smoke_")
     daemon, port = start_daemon(daemon_bin, "--trace_stream_max_mb", "1024")
+    if sys.argv[1:] == ["--parallel-only"]:
+        try:
+            parallel_phase(DynoClient(port=port), dyno_bin, port, tag)
+        finally:
+            stop_daemon(daemon)
+        return finish()
     client = trainer = None
     try:
         print(f"daemon: port {port}", flush=True)
@@ -860,16 +1086,9 @@ def main() -> int:
         trace_root = tempfile.mkdtemp(prefix="chip_smoke_traces_")
         dur_dir = os.path.join(trace_root, "gputrace")
 
-        def gputrace():
-            out = subprocess.run(
-                [str(dyno_bin), "--port", str(port), "gputrace",
-                 "--job_id", JOB, "--duration_ms", str(TRACE_MS),
-                 "--log_dir", dur_dir],
-                capture_output=True, text=True, timeout=30)
-            check(out.returncode == 0 and "Triggered 1" in out.stdout,
-                  f"dyno gputrace: {out.stdout} {out.stderr}")
-
-        _, t = run_capture(client, trainer, gputrace, dur_dir)
+        _, t = run_capture(
+            client, trainer,
+            lambda: trigger_gputrace(dyno_bin, port, JOB, dur_dir), dur_dir)
         check_trace(dur_dir, trainer.tid, "gputrace")
         to_start = (t["trace_start"] - t["config_received"]) * 1e3
         start_call = (t["start_returned"] - t["trace_start"]) * 1e3
@@ -925,6 +1144,7 @@ def main() -> int:
 
         parity_check(tag)
         retro_phase(daemon_bin, step_fn, make_batch, tag)
+        parallel_phase(rpc, dyno_bin, port, tag)
     finally:
         if trainer is not None:
             trainer.halt()
@@ -933,7 +1153,10 @@ def main() -> int:
         stop_daemon(daemon)
 
     fleet_phase(daemon_bin, tag)
+    return finish()
 
+
+def finish() -> int:
     print(json.dumps({"kernels": []}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

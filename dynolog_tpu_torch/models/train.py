@@ -1,7 +1,11 @@
 """Training step for the flagship workload, in PyTorch (counterpart of
 ``dynolog_tpu/models/train.py``): forward, loss, autograd backward and an
-AdamW update. The sharded variants come with the port's parallel
-workloads.
+AdamW update, unsharded and over a ``("data", "seq", "model")`` mesh.
+
+Where the reference's jitted step lets GSPMD sum the gradients over
+``data``/``seq``, the sharded step here all-reduces them after
+``backward`` itself; tensor-parallel partials are summed inside the
+model (``models/transformer.py``).
 """
 
 from __future__ import annotations
@@ -11,6 +15,11 @@ import contextlib
 import torch
 
 from dynolog_tpu_torch.models.transformer import ModelConfig, Transformer
+from dynolog_tpu_torch.parallel.collectives import (
+    all_reduce_grads,
+    reduce_from_group,
+)
+from dynolog_tpu_torch.parallel.mesh import axis
 
 
 def loss_fn(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
@@ -47,6 +56,88 @@ def make_train_step(cfg: ModelConfig, device: str | torch.device = "cuda",
         return loss.detach()
 
     return model, optimizer, train_step
+
+
+def shard_batch(tokens: torch.Tensor, mesh):
+    """This rank's part of a global [B, S] batch on a (data, seq, model)
+    mesh: (inputs [B/data, S/seq], their next tokens, a mask of the
+    positions that have one). The shift is the global one, as the
+    reference slices ``[:, :-1]`` on the global array: a sequence
+    block's last position takes the next block's first token as its
+    target, and only the last position of the whole sequence has none."""
+    di, dn = axis(mesh, "data")
+    si, sn = axis(mesh, "seq")
+    b, s = tokens.shape[0] // dn, tokens.shape[1] // sn
+    rows = tokens[di * b:(di + 1) * b]
+    nxt = torch.roll(rows, -1, dims=1)
+    cols = slice(si * s, (si + 1) * s)
+    pos = si * s + torch.arange(s, device=tokens.device)
+    valid = pos < tokens.shape[1] - 1
+    return rows[:, cols], nxt[:, cols], valid
+
+
+def sharded_loss_fn(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
+    """loss_fn of the global batch ``tokens`` on a sharded model: every
+    rank returns the mean over all B*(S-1) positions. Each rank sums
+    the negative log-likelihoods of its block, and the sums are added
+    over ``data`` and ``seq`` (backward: identity, since every rank
+    computes the same mean)."""
+    mesh = model.mesh
+    inputs, targets, valid = shard_batch(tokens, mesh)
+    logp = torch.log_softmax(model(inputs).float(), dim=-1)
+    nll = -logp.gather(-1, targets[..., None])[..., 0]
+    total = (nll * valid).sum()
+    for name in ("data", "seq"):
+        total = reduce_from_group(total, mesh.get_group(name))
+    return total / (tokens.shape[0] * (tokens.shape[1] - 1))
+
+
+def make_sharded_workload(model: torch.nn.Module, loss, sync,
+                          lr: float = 3e-4, optimizer=None):
+    """Shared scaffolding of the sharded workloads: optimizer and a
+    train step. ``loss(model, tokens) -> scalar`` (the same on every
+    rank); ``sync()`` sums the gradients over the ranks that hold the
+    same parameters, after ``backward``. The optimizer defaults to the
+    reference's ``optax.adamw(lr)``: b2 0.999, eps 1e-8 and weight_decay
+    1e-4 (torch's default is 0.01). Returns (optimizer, step),
+    ``step(tokens) -> loss``."""
+    optimizer = optimizer or torch.optim.AdamW(
+        model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8,
+        weight_decay=1e-4)
+
+    def step(tokens: torch.Tensor) -> torch.Tensor:
+        optimizer.zero_grad(set_to_none=True)
+        value = loss(model, tokens)
+        value.backward()
+        sync()
+        optimizer.step()
+        return value.detach()
+
+    return optimizer, step
+
+
+def init_sharded(cfg: ModelConfig, mesh, device: str | torch.device = "cuda",
+                 generator: torch.Generator | None = None):
+    """This rank's shards of the flagship model (the unsharded model's
+    weights from ``generator``, sliced) and its AdamW."""
+    model = Transformer(cfg, device=device, generator=generator, mesh=mesh)
+    return model, make_optimizer(model)
+
+
+def make_sharded_train_step(cfg: ModelConfig, mesh,
+                            device: str | torch.device = "cuda",
+                            generator: torch.Generator | None = None):
+    """The flagship train step over ``mesh``: (model, optimizer,
+    ``train_step(tokens) -> loss``), tokens the global [B, S] batch.
+    Gradients are summed over ``data`` and ``seq``; the parameters
+    replicated over ``model`` already hold their full gradient."""
+    model, optimizer = init_sharded(cfg, mesh, device, generator)
+    groups = [mesh.get_group("data"), mesh.get_group("seq")]
+    _, step = make_sharded_workload(
+        model, sharded_loss_fn,
+        lambda: all_reduce_grads(model.parameters(), groups),
+        optimizer=optimizer)
+    return model, optimizer, step
 
 
 def run_annotated_loop(step_fn, make_batch, steps, client=None,
