@@ -31,6 +31,17 @@ without the final line:
              start->stop, stop->artifact
   parity     the tiny model in float32 (TF32 off) on the GPU against the
              same weights on the CPU, max abs <= 1e-4
+  control    the shim's control plane against a daemon of its own
+             (socket chip_smoke_control, a base config file of
+             {"duration_ms": 300}) under the flagship step: ~3 s of
+             annotated steps read back through getPhases and `dyno
+             phases`; three `dyno gputrace` pushed to a client that polls
+             every 5 s; a config without duration_ms that takes the
+             base's 300 ms; the daemon SIGKILLed and restarted inside an
+             open checkpoint phase, the client re-registering on its own
+             and replaying the phase; a gputrace after the restart whose
+             manifest carries op_stats, phase_spans and spans, and the
+             dyno_self_* keys in the job's tpu_status record
   training   the flagship loss is finite and fell over the run
   fleet      three daemons and three worker processes (this script with
              --fleet-worker), each training the flagship step on the one
@@ -126,6 +137,12 @@ RETRO_ROUNDS = 4
 # tensorcore_duty_cycle_pct could fire on real readings before the ring
 # is primed.
 RETRO_METRIC = "chip_smoke_anomaly"
+CONTROL_JOB = "chip_smoke_control"
+CONTROL_SOCKET = "chip_smoke_control"
+CONTROL_PHASES_S = 3.0
+CONTROL_PUSH_TRIALS = 3
+CONTROL_POLL_S = 5.0
+CONTROL_BASE_MS = 300
 PARALLEL_JOB = "chip_smoke_parallel"
 PARALLEL_WARMUP = 2
 PARALLEL_STEPS = 8
@@ -209,10 +226,12 @@ def stop_daemon(proc):
 
 class TrainingThread:
     """Runs the annotated flagship loop with the client's step() hook
-    until stopped; remembers its native thread id and every loss."""
+    until stopped; remembers its native thread id, every loss and every
+    step's wall time."""
 
     def __init__(self, step_fn, make_batch, client):
         self.losses: list[float] = []
+        self.step_ms: list[float] = []
         self.error: Exception | None = None
         self.tid: int | None = None
         self._stop = threading.Event()
@@ -224,8 +243,10 @@ class TrainingThread:
         self.tid = threading.get_native_id()
         try:
             while not self._stop.is_set():
+                t0 = time.perf_counter()
                 self.losses.append(run_annotated_loop(
                     self._args[0], self._args[1], 1, client=self._args[2]))
+                self.step_ms.append((time.perf_counter() - t0) * 1e3)
         except Exception as e:  # reported on the main thread
             self.error = e
 
@@ -390,6 +411,265 @@ def parity_check(tag):
     check(err <= PARITY_ATOL, f"parity: max abs {err} > {PARITY_ATOL}")
     print(f"parity [{tag}] tiny fp32 logits gpu vs cpu max_abs={err:.3e} "
           f"(limit {PARITY_ATOL})", flush=True)
+
+
+def _phase_stacks(rpc, pid):
+    """This process's getPhases entry: ({stack: entry}, open_stack). A
+    read resets the daemon's attribution window."""
+    procs = [p for p in rpc.get_phases()["processes"] if p["pid"] == pid]
+    if not procs:
+        return {}, []
+    return ({tuple(p["stack"]): p for p in procs[0]["phases"]},
+            procs[0]["open_stack"])
+
+
+class _StepClock:
+    """The client as the training loop sees it, stamping the wall time of
+    every step() call: a duration capture stops at the first step() at or
+    after its deadline."""
+
+    def __init__(self, client, stamps):
+        self.phase = client.phase
+        self._step = client.step
+        self._stamps = stamps
+
+    def step(self):
+        self._stamps.append(time.time())
+        self._step()
+
+
+def control_phase(daemon_bin, dyno_bin, step_fn, make_batch, tag,
+                  stop_slack_ms):
+    """The client shim's control plane under the flagship step, against a
+    daemon of its own (it is restarted here): phase attribution, push
+    delivery against a 5 s poll, the base config, a daemon restart
+    inside an open phase, and the manifest's and telemetry's
+    self-reporting. ``stop_slack_ms`` is the latency phase's largest
+    start_to_stop beyond its window."""
+    t_phase = time.monotonic()
+    base_file = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_base_"),
+                             "trace_base.json")
+    with open(base_file, "w") as f:
+        json.dump({"duration_ms": CONTROL_BASE_MS}, f)
+    trace_root = tempfile.mkdtemp(prefix="chip_smoke_control_")
+    pid = os.getpid()
+
+    def start():
+        proc, port = start_daemon(
+            daemon_bin, "--ipc_socket_name", CONTROL_SOCKET,
+            "--trace_base_config", base_file,
+            "--trace_stream_max_mb", "1024", "--enable_perf_monitor=false")
+        threading.Thread(target=proc.stderr.read, daemon=True).start()
+        return {"proc": proc, "port": port, "rpc": DynoClient(port=port)}
+
+    d = start()
+    client = trainer = None
+    try:
+        # Phases: ~3 s of annotated steps, read back.
+        client = DynologClient(
+            job_id=CONTROL_JOB, poll_interval_s=CONTROL_POLL_S,
+            metrics_interval_s=1.0, daemon_socket=CONTROL_SOCKET).start()
+        run_annotated_loop(step_fn, make_batch, 2, client=client)
+        wait_for(lambda: CONTROL_JOB in d["rpc"].trace_registry().get(
+            "jobs", {}), 30, "control client registration")
+        _phase_stacks(d["rpc"], pid)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps = 0
+        while time.perf_counter() - t0 < CONTROL_PHASES_S:
+            run_annotated_loop(step_fn, make_batch, 1, client=client)
+            steps += 1
+        loop_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(0.2)  # the last datagrams land
+        stacks, _ = _phase_stacks(d["rpc"], pid)
+        step_wall = sum(e["wall_ms"] for k, e in stacks.items()
+                        if k[0] == "step")
+        check(("step", "input") in stacks,
+              f"control: no step>input stack: {sorted(stacks)}")
+        check(step_wall >= 0.5 * loop_ms,
+              f"control: step stacks hold {step_wall:.1f} ms of a "
+              f"{loop_ms:.1f} ms loop")
+        run_annotated_loop(step_fn, make_batch, 2, client=client)
+        out = subprocess.run(
+            [str(dyno_bin), "--port", str(d["port"]), "phases"],
+            capture_output=True, text=True, timeout=30)
+        check(out.returncode == 0 and f"pid {pid}" in out.stdout
+              and "step" in out.stdout,
+              f"control: dyno phases: {out.stdout} {out.stderr}")
+        print(f"control [{tag}] phases: {steps} annotated steps in "
+              f"{loop_ms:.1f} ms, step stacks {step_wall:.1f} ms "
+              f"({100 * step_wall / loop_ms:.1f} %); `dyno phases` lists "
+              f"pid {pid}", flush=True)
+        for k in sorted(stacks):
+            e = stacks[k]
+            print(f"control [{tag}] phases {'>'.join(k)} wall_ms="
+                  f"{e['wall_ms']:.1f} cpu_ms={e.get('cpu_ms', 0):.1f}",
+                  flush=True)
+
+        # Push: three gputraces to a client that polls every 5 s.
+        stamps: list[float] = []
+        trainer = TrainingThread(step_fn, make_batch,
+                                 _StepClock(client, stamps)).start()
+        rpc_to_config = []
+        for i in range(CONTROL_PUSH_TRIALS):
+            log_dir = os.path.join(trace_root, f"push_{i}")
+            t_rpc, t = run_capture(
+                client, trainer, lambda: trigger_gputrace(
+                    dyno_bin, d["port"], CONTROL_JOB, log_dir), log_dir)
+            ms = (t["config_received"] - t_rpc) * 1e3
+            check(t.get("delivery") == "push" and ms < CONTROL_POLL_S * 1e3,
+                  f"control push_{i}: delivery {t.get('delivery')} after "
+                  f"{ms:.1f} ms")
+            rpc_to_config.append(round(ms, 3))
+            check_trace(log_dir, trainer.tid, f"control push_{i}")
+        counters = d["rpc"].self_telemetry()["counters"]
+        check(counters.get("push_sent", 0) >= CONTROL_PUSH_TRIALS
+              and "push_fallback" not in counters,
+              f"control: daemon push counters {counters}")
+        received = client.spans.counters().get("pushes_received", 0)
+        check(received >= CONTROL_PUSH_TRIALS,
+              f"control: the client received {received} pushes")
+        print(f"control [{tag}] push rpc_to_config median_ms="
+              f"{statistics.median(rpc_to_config):.3f} trials_ms="
+              f"{rpc_to_config} poll_interval_ms={CONTROL_POLL_S * 1e3:.0f} "
+              f"push_sent={counters['push_sent']} push_fallback=0 "
+              f"pushes_received={received}", flush=True)
+
+        # Base config: a config without duration_ms takes the base's.
+        check(client._base_config == {"duration_ms": CONTROL_BASE_MS},
+              f"control: the client's base config {client._base_config}")
+        log_dir = os.path.join(trace_root, "base")
+        _, t = run_capture(client, trainer, lambda: d["rpc"].set_trace_config(
+            CONTROL_JOB, {"type": "xplane", "log_dir": log_dir}), log_dir)
+        check_trace(log_dir, trainer.tid, "control base")
+        deadline = t["start_returned"] + CONTROL_BASE_MS / 1e3
+        # The clock stamps each step() call as it enters the shim, and
+        # the call that stops the capture stamps stop_begin inside: its
+        # stamp is the last one before stop_begin.
+        before = [x for x in stamps
+                  if t["start_returned"] < x <= t["stop_begin"]]
+        check(before and t["stop_begin"] >= deadline
+              and all(x < deadline for x in before[:-1]),
+              f"control base: stop at {t['stop_begin'] - deadline:+.3f} s "
+              f"from the {CONTROL_BASE_MS} ms deadline, step() calls "
+              f"{[round(x - deadline, 3) for x in before]}")
+        start_to_stop = (t["trace_stop"] - t["trace_start"]) * 1e3
+        check(start_to_stop <= CONTROL_BASE_MS + stop_slack_ms,
+              f"control base: start_to_stop {start_to_stop:.1f} ms > "
+              f"{CONTROL_BASE_MS} + {stop_slack_ms:.1f} ms")
+        window = (t["stop_begin"] - t["start_returned"]) * 1e3
+        print(f"control [{tag}] base config duration_ms={CONTROL_BASE_MS}: "
+              f"window {window:.1f} ms (stopped at the first step() after "
+              f"its deadline, {(t['stop_begin'] - deadline) * 1e3:.1f} ms "
+              f"late), start_to_stop {start_to_stop:.1f} ms against "
+              f"{CONTROL_BASE_MS} + the latency phase's "
+              f"{stop_slack_ms:.1f} ms", flush=True)
+        trainer.stop()
+        trainer = None
+        client.stop()
+
+        # Restart: SIGKILL and restart the daemon inside an open
+        # checkpoint phase; the client re-registers on its own.
+        client = DynologClient(
+            job_id=CONTROL_JOB, poll_interval_s=0.5, backoff_cap_s=2.0,
+            metrics_interval_s=1.0, daemon_socket=CONTROL_SOCKET).start()
+        run_annotated_loop(step_fn, make_batch, 2, client=client)
+        restart = {}
+
+        def registered():
+            jobs = d["rpc"].trace_registry().get("jobs", {})
+            return any(p["pid"] == pid for p in jobs.get(CONTROL_JOB, []))
+
+        def kill_and_restart(i):
+            t_push = time.time()
+            d["proc"].kill()
+            d["proc"].wait(timeout=10)
+            t_kill = time.monotonic()
+            d.update(start())
+            wait_for(lambda: client.spans.counters().get(
+                "daemon_restarts_detected", 0) >= 1 and registered(), 60,
+                "re-registration after the restart")
+            restart["rereg_ms"] = (time.monotonic() - t_kill) * 1e3
+
+            def replayed():
+                stacks, open_stack = _phase_stacks(d["rpc"], pid)
+                return open_stack[-1:] == ["checkpoint"] and (
+                    stacks, open_stack)
+
+            restart["stacks"], restart["open"] = wait_for(
+                replayed, 10, "the open checkpoint phase replayed")
+            restart["since_push_ms"] = (time.time() - t_push) * 1e3
+
+        run_annotated_loop(step_fn, make_batch, 1, client=client,
+                           checkpoint_every=1,
+                           checkpoint_fn=kill_and_restart)
+        ck = restart["stacks"][tuple(restart["open"])]
+        check(ck["wall_ms"] >= 0.5 * restart["since_push_ms"],
+              f"control restart: checkpoint wall_ms {ck['wall_ms']:.1f} of "
+              f"{restart['since_push_ms']:.1f} ms since its push")
+        counters = client.spans.counters()
+        print(f"control [{tag}] restart: SIGKILL -> re-registration "
+              f"{restart['rereg_ms']:.1f} ms; open_stack "
+              f"{'>'.join(restart['open'])} wall_ms={ck['wall_ms']:.1f} "
+              f"of {restart['since_push_ms']:.1f} ms since its push; "
+              f"daemon_restarts_detected="
+              f"{counters.get('daemon_restarts_detected')} reregistrations="
+              f"{counters.get('reregistrations')}", flush=True)
+
+        # Manifest: a gputrace after the restart, with op_stats from the
+        # workload's own step timer.
+        trainer = TrainingThread(step_fn, make_batch, client).start()
+        wait_for(lambda: len(trainer.step_ms) >= 3 or trainer.error, 120,
+                 "three timed steps")
+        trainer.alive_check()
+        timed = list(trainer.step_ms)
+        client.record_op_stats([{"name": "flagship_step",
+                                 "count": len(timed),
+                                 "total_ms": sum(timed)}])
+        log_dir = os.path.join(trace_root, "after_restart")
+        run_capture(client, trainer, lambda: trigger_gputrace(
+            dyno_bin, d["port"], CONTROL_JOB, log_dir), log_dir)
+        check_trace(log_dir, trainer.tid, "control after restart")
+        with open(os.path.join(os.path.dirname(find_traces(log_dir)),
+                               "dynolog_manifest.json")) as f:
+            manifest = json.load(f)
+        ops = manifest.get("op_stats") or []
+        phase_names = {s["name"] for s in manifest.get("phase_spans", [])}
+        check(ops and ops[0]["name"] == "flagship_step"
+              and ops[0]["count"] == len(timed),
+              f"control manifest op_stats: {ops}")
+        check("step" in phase_names and manifest.get("spans"),
+              f"control manifest: phase_spans {sorted(phase_names)}, "
+              f"{len(manifest.get('spans', []))} spans")
+
+        def self_record():
+            for dev in d["rpc"].tpu_status().get("devices", []):
+                met = dev.get("metrics", {})
+                if dev.get("job_id") == CONTROL_JOB and \
+                        "dyno_self_fabric_send_total" in met:
+                    return met
+            return None
+
+        met = wait_for(self_record, 30, "dyno_self_* in tpu_status")
+        selfkeys = sorted(k for k in met if k.startswith("dyno_self_"))
+        print(f"control [{tag}] manifest after the restart: op_stats "
+              f"{ops[0]['name']} x{ops[0]['count']} "
+              f"{ops[0]['total_ms']:.1f} ms, phase_spans "
+              f"{len(manifest['phase_spans'])} {sorted(phase_names)}, "
+              f"spans {len(manifest['spans'])}; tpu_status carries "
+              f"{len(selfkeys)} dyno_self_* keys", flush=True)
+        trainer.stop()
+        check(all(map(math.isfinite, trainer.losses)),
+              "control: non-finite flagship loss")
+        trainer = None
+    finally:
+        if trainer is not None:
+            trainer.halt()
+        if client is not None:
+            client.stop()
+        stop_daemon(d["proc"])
+    print(f"control: phase took {time.monotonic() - t_phase:.1f} s",
+          flush=True)
 
 
 def fleet_worker() -> int:
@@ -1143,6 +1423,8 @@ def main() -> int:
         trainer = None
 
         parity_check(tag)
+        control_phase(daemon_bin, dyno_bin, step_fn, make_batch, tag,
+                      max(phases["start_to_stop"]) * 1e3 - TRACE_MS)
         retro_phase(daemon_bin, step_fn, make_batch, tag)
         parallel_phase(rpc, dyno_bin, port, tag)
     finally:
