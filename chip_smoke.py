@@ -68,6 +68,11 @@ without the final line:
              flagship step under the client shim, with its NCCL kernels
              counted. `python3 chip_smoke.py --parallel-only` runs the
              build, the daemon and this phase alone (the four-card run).
+  bench      `python -m dynolog_tpu_torch.bench --quick` in a subprocess
+             against the binaries built above, within 150 s: exit code 0,
+             a last line that parses, platform "gpu:...", a number under
+             every key the bench requires; its headline numbers, one
+             line each.
 
 The port has no hand-written kernel (the JAX package has no Pallas
 kernel), so the kernel table it prints is empty. The last line is the
@@ -76,7 +81,6 @@ device record `{"ok": true, "device": {...}}`.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import faulthandler
 import glob
@@ -97,6 +101,28 @@ import time
 import torch
 import torch.distributed as dist
 
+from dynolog_tpu_torch.bench import BenchError as SmokeError
+from dynolog_tpu_torch.bench import (
+    BATCH,
+    BREAKDOWN,
+    FLAGSHIP,
+    SEQ,
+    StepOnly,
+    TrainingThread,
+    build_native,
+    card_line,
+    check,
+    measure_ring as _measure_ring,
+    measure_windows,
+    missing_numbers,
+    retro_uploads,
+    run_capture,
+    start_daemon,
+    stop_daemon,
+    trace_breakdown,
+    trigger_gputrace,
+    wait_for,
+)
 from dynolog_tpu_torch.client import DynologClient
 from dynolog_tpu_torch.fleet import eventlog, trace_report, unitrace
 from dynolog_tpu_torch.models import moe, pipeline
@@ -109,16 +135,10 @@ from dynolog_tpu_torch.models.train import (
 from dynolog_tpu_torch.models.transformer import ModelConfig, Transformer
 from dynolog_tpu_torch.parallel.mesh import make_mesh, mesh_shape
 from dynolog_tpu_torch.utils.cpumesh import run_ranks
-from dynolog_tpu_torch.utils.procutil import wait_for_stderr
 from dynolog_tpu_torch.utils.rpc import DynoClient
 
 REPO = pathlib.Path(__file__).resolve().parent
 
-# bench.py:make_step's flagship configuration (~34.1 M parameters).
-FLAGSHIP = ModelConfig(vocab_size=8192, d_model=512, n_layers=8, n_heads=8,
-                       d_ff=1408, max_seq_len=512,
-                       compute_dtype=torch.bfloat16, remat=True)
-BATCH, SEQ = 8, 512
 JOB = "chip_smoke"
 OVERHEAD_ROUNDS = 8
 TRACE_MS = 500
@@ -151,134 +171,7 @@ PARALLEL_TIMEOUT_S = 300
 # relative: tests/test_model.py's bf16 sharded-loss bound for the
 # flagship, the JAX MoE/pipeline tests' 2e-2 for the others.
 PARALLEL_REL = {"flagship": 5e-3, "moe": 2e-2, "pipe": 2e-2}
-
-
-class SmokeError(RuntimeError):
-    pass
-
-
-def check(cond, what):
-    if not cond:
-        raise SmokeError(what)
-
-
-def wait_for(predicate, timeout_s, what, interval_s=0.05):
-    deadline = time.monotonic() + timeout_s
-    while time.monotonic() < deadline:
-        value = predicate()
-        if value:
-            return value
-        time.sleep(interval_s)
-    # Where every thread is when a phase stalls: the shim's work runs on
-    # the training, poll and capture threads.
-    faulthandler.dump_traceback(all_threads=True)
-    raise SmokeError(f"timed out after {timeout_s:.0f}s waiting for {what}")
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=30)
-    return out.stdout.strip().splitlines()[0]
-
-
-def build_native() -> tuple[pathlib.Path, pathlib.Path]:
-    t0 = time.monotonic()
-    out = subprocess.run([str(REPO / "scripts" / "build.sh")],
-                         capture_output=True, text=True, timeout=600)
-    if out.returncode != 0:
-        raise SmokeError(f"native build failed:\n{out.stdout[-2000:]}\n"
-                         f"{out.stderr[-4000:]}")
-    for sub in ("build", "build-manual"):
-        d = REPO / "native" / sub
-        if (d / "dynolog_tpu_daemon").exists() and (d / "dyno").exists():
-            print(f"build: {d.relative_to(REPO)} in "
-                  f"{time.monotonic() - t0:.1f}s", flush=True)
-            return d / "dynolog_tpu_daemon", d / "dyno"
-    raise SmokeError("build produced no dynolog_tpu_daemon/dyno")
-
-
-def start_daemon(daemon_bin, *flags):
-    """The daemon on --port 0 with fabric sockets in
-    $DYNOLOG_TPU_SOCKET_DIR and its collectors idle. Returns (proc, port);
-    stop it with stop_daemon."""
-    proc = subprocess.Popen(
-        [str(daemon_bin), "--port", "0",
-         "--kernel_monitor_interval_s", "3600",
-         "--tpu_monitor_interval_s", "3600", *flags],
-        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
-    m, buf = wait_for_stderr(proc, r"rpc: listening on port (\d+)")
-    if m is None:
-        stop_daemon(proc)
-        raise SmokeError(f"daemon did not start: {buf[-2000:]}")
-    return proc, int(m.group(1))
-
-
-def stop_daemon(proc):
-    proc.send_signal(signal.SIGTERM)
-    try:
-        proc.wait(timeout=10)
-    except subprocess.TimeoutExpired:
-        proc.kill()
-        proc.wait()
-
-
-class TrainingThread:
-    """Runs the annotated flagship loop with the client's step() hook
-    until stopped; remembers its native thread id, every loss and every
-    step's wall time."""
-
-    def __init__(self, step_fn, make_batch, client):
-        self.losses: list[float] = []
-        self.step_ms: list[float] = []
-        self.error: Exception | None = None
-        self.tid: int | None = None
-        self._stop = threading.Event()
-        self._args = (step_fn, make_batch, client)
-        self._thread = threading.Thread(target=self._run, name="train",
-                                        daemon=True)
-
-    def _run(self):
-        self.tid = threading.get_native_id()
-        try:
-            while not self._stop.is_set():
-                t0 = time.perf_counter()
-                self.losses.append(run_annotated_loop(
-                    self._args[0], self._args[1], 1, client=self._args[2]))
-                self.step_ms.append((time.perf_counter() - t0) * 1e3)
-        except Exception as e:  # reported on the main thread
-            self.error = e
-
-    def start(self):
-        self._thread.start()
-        wait_for(lambda: self.losses or self.error, 120, "first train step")
-        return self
-
-    def halt(self):
-        self._stop.set()
-        self._thread.join(timeout=60)
-
-    def stop(self):
-        self.halt()
-        check(not self._thread.is_alive(), "training thread did not stop")
-        self.alive_check()
-
-    def alive_check(self):
-        if self.error is not None:
-            raise SmokeError(f"training thread failed: {self.error!r}")
-
-
-class _StepOnly:
-    """The client with its step() hook but without phase annotations:
-    splits the overhead of the per-step phase datagrams (and the
-    daemon's per-phase CPU sampling they switch on) from the rest."""
-
-    def __init__(self, client):
-        self.step = client.step
-
-    def phase(self, name):
-        return contextlib.nullcontext()
+BENCH_TIMEOUT_S = 150
 
 
 def measure_overhead(step_fn, make_batch, tag):
@@ -290,33 +183,20 @@ def measure_overhead(step_fn, make_batch, tag):
     spreads over all of them. Each window ends in
     torch.cuda.synchronize(); the loop reads every loss back, as the
     reference loop blocks on it."""
-    def window(client, steps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run_annotated_loop(step_fn, make_batch, steps, client=client)
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3 / steps
-
-    probe = window(None, 10)
-    steps = max(20, int(2000 / probe))  # windows of ~2 s
-    sides = ["off", "step_only", "on", "on_no_phase_cpu"]
-    ms = {side: [] for side in sides}
-    for i in range(OVERHEAD_ROUNDS):
-        k = i % len(sides)
-        for side in sides[k:] + sides[:k]:
-            if side == "off":
-                ms[side].append(window(None, steps))
-                continue
+    def client_side(daemon_socket, step_only=False):
+        def open_side():
             client = DynologClient(
                 job_id=f"{JOB}_overhead", metrics_interval_s=1.0,
-                daemon_socket=QUIET if side == "on_no_phase_cpu" else None)
+                daemon_socket=daemon_socket)
             client.start()
-            try:
-                hook = _StepOnly(client) if side == "step_only" else client
-                window(hook, 3)  # registration settles
-                ms[side].append(window(hook, steps))
-            finally:
-                client.stop()
+            return client, StepOnly(client) if step_only else client
+        return open_side
+
+    sides = {"off": None, "step_only": client_side(None, step_only=True),
+             "on": client_side(None),
+             "on_no_phase_cpu": client_side(QUIET)}
+    ms, steps = measure_windows(step_fn, make_batch, sides, OVERHEAD_ROUNDS,
+                                torch.cuda.synchronize)
     m_off = statistics.median(ms["off"])
     for side in sides:
         m = statistics.median(ms[side])
@@ -366,30 +246,6 @@ def check_trace(log_dir, train_tid, label):
           f"aten_on_train_thread={aten_train} streamed=identical "
           f"manifest=ok", flush=True)
     return len(raw)
-
-
-def run_capture(client, trainer, trigger, log_dir, timeout_s=120):
-    before = client.captures_completed
-    t_rpc = time.time()
-    trigger()
-    try:
-        wait_for(lambda: client.captures_completed > before or trainer.error,
-                 timeout_s, f"capture into {log_dir}")
-    except SmokeError as e:
-        raise SmokeError(f"{e}; trace_timing={client.trace_timing} "
-                         f"train steps={len(trainer.losses)}") from None
-    trainer.alive_check()
-    return t_rpc, dict(client.trace_timing)
-
-
-def trigger_gputrace(dyno_bin, port, job, log_dir):
-    out = subprocess.run(
-        [str(dyno_bin), "--port", str(port), "gputrace",
-         "--job_id", job, "--duration_ms", str(TRACE_MS),
-         "--log_dir", log_dir],
-        capture_output=True, text=True, timeout=30)
-    check(out.returncode == 0 and "Triggered 1" in out.stdout,
-          f"dyno gputrace: {out.stdout} {out.stderr}")
 
 
 def parity_check(tag):
@@ -889,66 +745,24 @@ def fleet_phase(daemon_bin, tag):
     print(f"fleet: phase took {time.monotonic() - t_phase:.1f} s", flush=True)
 
 
-def _retro_uploads(client):
-    return [sp for sp in client.spans.snapshot()
-            if sp["name"] == "retro_upload"]
-
-
 def measure_ring(step_fn, make_batch, tag):
     """Median ms/step of the full client against the main daemon (ring
     off) and against the retro daemon (ring on), in rotating windows of
     ~2 s, each with a fresh client. Returns the ring-on clients'
     retro_upload spans and the training time each window cost."""
-    def window(client, steps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run_annotated_loop(step_fn, make_batch, steps, client=client)
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3 / steps
-
-    probe = window(None, 10)
-    steps = max(20, int(2000 / probe))
-    ms = {"ring_off": [], "ring_on": []}
-    uploads, extra_ms = [], []
-    for i in range(RETRO_ROUNDS):
-        sides = ["ring_off", "ring_on"]
-        for side in sides[i % 2:] + sides[:i % 2]:
-            client = DynologClient(
-                job_id=f"{RETRO_JOB}_overhead", metrics_interval_s=1.0,
-                daemon_socket=RETRO_SOCKET if side == "ring_on" else None)
-            client.start()
-            try:
-                window(client, 3)
-                # Windows start in step(): train until the first landed.
-                deadline = time.monotonic() + 60
-                while side == "ring_on" and not _retro_uploads(client):
-                    check(time.monotonic() < deadline,
-                          "retro: no window uploaded within 60 s")
-                    window(client, 1)
-                n0 = len(_retro_uploads(client))
-                ms[side].append(window(client, steps))
-                taken = len(_retro_uploads(client)) - n0
-            finally:
-                client.stop()
-            if side == "ring_on":
-                uploads.extend(_retro_uploads(client))
-                check(client.spans.counters().get("retro_disabled", 0) == 0,
-                      "retro: the flight recorder disabled itself")
-                on_windows = taken
-        # Training time the ring cost this round, per window it took.
-        if on_windows:
-            extra_ms.append((ms["ring_on"][-1] - ms["ring_off"][-1])
-                            * steps / on_windows)
+    ring = _measure_ring(step_fn, make_batch, RETRO_JOB, RETRO_SOCKET,
+                         RETRO_ROUNDS, torch.cuda.synchronize)
+    ms = ring["ms"]
     m_off = statistics.median(ms["ring_off"])
     for side in ms:
         m = statistics.median(ms[side])
         slower = sum(a > b for a, b in zip(ms[side], ms["ring_off"]))
         print(f"retro [{tag}] step_ms client_{side} median={m:.3f} "
               f"windows={[round(x, 3) for x in ms[side]]} "
-              f"steps_per_window={steps} "
+              f"steps_per_window={ring['steps']} "
               f"vs_ring_off={100 * (m - m_off) / m_off:+.3f}% "
               f"slower_than_off_in={slower}/{RETRO_ROUNDS}", flush=True)
-    return uploads, extra_ms
+    return ring["uploads"], ring["extra_ms"]
 
 
 def retro_phase(daemon_bin, step_fn, make_batch, tag):
@@ -1017,7 +831,7 @@ def retro_phase(daemon_bin, step_fn, make_batch, tag):
               f"retro: the flight recorder disabled itself: {counters}")
         check(counters.get("retro_windows_captured", 0) > 0,
               f"retro: no window captured: {counters}")
-        uploads = _retro_uploads(client)
+        uploads = retro_uploads(client)
         trainer = client = None
 
         check_trace(manifests[0]["_dir"], train_tid, "retro forward")
@@ -1269,6 +1083,63 @@ def parallel_phase(rpc, dyno_bin, port, tag):
           flush=True)
 
 
+def bench_phase(daemon_bin, dyno_bin, tag):
+    """`python -m dynolog_tpu_torch.bench --quick` against the binaries
+    built above, in its own session so that a run past its deadline
+    takes its daemons and burners down with it."""
+    t_phase = time.monotonic()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dynolog_tpu_torch.bench", "--quick",
+         "--daemon-bin", str(daemon_bin), "--dyno-bin", str(dyno_bin)],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=BENCH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        raise SmokeError(f"bench: no result within {BENCH_TIMEOUT_S} s: "
+                         f"{err[-4000:]}") from None
+    check(proc.returncode == 0,
+          f"bench: exit {proc.returncode}: {err[-4000:]}")
+    lines = out.strip().splitlines()
+    check(lines, f"bench: printed nothing: {err[-4000:]}")
+    record = json.loads(lines[-1])
+    d = record["detail"]
+    check(d["platform"].startswith("gpu:"), f"bench: platform {d['platform']}")
+    check(d["card"] and not missing_numbers(d),
+          f"bench: no number for {missing_numbers(d)}, card {d['card']}")
+    o = d["overhead"]
+    print(f"bench [{tag}] platform {d['platform']}, card {d['card']}; "
+          f"overhead {record['value']:+.3f}% (client off "
+          f"{o['off_median_ms']:.3f} / on {o['on_median_ms']:.3f} ms/step, "
+          f"{o['rounds']} rounds of {o['steps_per_window']} steps)",
+          flush=True)
+    for key in ("trace_latency", "trace_latency_poll_fallback"):
+        t = d[key]
+        print(f"bench [{tag}] {key} e2e median={t['e2e_ms']['median']} "
+              f"p95={t['e2e_ms']['p95']} nonwindow median="
+              f"{t['nonwindow_ms']['median']} ms, stop_call median="
+              f"{t['phases_ms']['stop_call']['median']} ms, window "
+              f"{t['window_ms']} ms, {t['trials']} trial(s), deliveries "
+              f"{t['deliveries']}", flush=True)
+    pa, lh, fr = d["phase_attribution"], d["loaded_host"], d["flight_recorder"]
+    print(f"bench [{tag}] phase_attribution cadence_ratio="
+          f"{pa['cadence_ratio']:.3f} spin_cpu_util="
+          f"{pa['annotated']['spin_cpu_util']} sleep_cpu_util="
+          f"{pa['annotated']['sleep_cpu_util']}; loaded_host overhead="
+          f"{lh['overhead_pct']:+.3f}% accounting="
+          f"{lh['overhead_cpu_accounting_pct']:.3f}% over "
+          f"{lh['cpus_saturated']} burners", flush=True)
+    print(f"bench [{tag}] flight_recorder cadence_ratio="
+          f"{fr['cadence_ratio']:.3f} trigger_to_retro median="
+          f"{fr['trigger_to_retro_ms']['median']} ms; ring "
+          f"{fr['ring']['ring_off_median_ms']:.3f} -> "
+          f"{fr['ring']['ring_on_median_ms']:.3f} ms/step "
+          f"({fr['ring']['vs_ring_off_pct']:+.3f}%)", flush=True)
+    print(f"bench: phase took {time.monotonic() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     if sys.argv[1:] == ["--fleet-worker"]:
         return fleet_worker()
@@ -1288,7 +1159,9 @@ def main() -> int:
           f"count {torch.cuda.device_count()}", flush=True)
     tag = card
 
-    daemon_bin, dyno_bin = build_native()
+    daemon_bin, dyno_bin, build_s = build_native()
+    print(f"build: {daemon_bin.parent.relative_to(REPO)} in {build_s:.1f}s",
+          flush=True)
 
     os.environ["DYNOLOG_TPU_SOCKET_DIR"] = tempfile.mkdtemp(
         prefix="chip_smoke_")
@@ -1387,26 +1260,19 @@ def main() -> int:
                     iter_dir)
         check_trace(iter_dir, trainer.tid, "iteration")
 
-        phases = {"rpc_to_config": [], "config_to_start": [],
-                  "start_call": [], "start_to_stop": [], "stop_call": [],
-                  "stop_to_artifact": [], "stop_to_stream_commit": []}
+        phases = {name: [] for name in BREAKDOWN}
         sizes = []
         for i in range(LATENCY_TRIALS):
             log_dir = os.path.join(trace_root, f"latency_{i}")
             t_rpc, t = run_capture(client, trainer, arm(log_dir), log_dir)
             sizes.append(check_trace(log_dir, trainer.tid, f"latency_{i}"))
-            phases["rpc_to_config"].append(t["config_received"] - t_rpc)
-            phases["config_to_start"].append(
-                t["trace_start"] - t["config_received"])
-            phases["start_call"].append(t["start_returned"] - t["trace_start"])
-            phases["start_to_stop"].append(t["trace_stop"] - t["trace_start"])
-            phases["stop_call"].append(t["trace_stop"] - t["stop_begin"])
-            phases["stop_to_artifact"].append(
-                t["export_done"] - t["trace_stop"])
-            phases["stop_to_stream_commit"].append(
-                t["stream_commit"] - t["trace_stop"])
+            row = trace_breakdown(t_rpc, t)
+            check(set(row) == set(BREAKDOWN),
+                  f"latency_{i}: trace_timing lacks stamps: {t}")
+            for name, ms in row.items():
+                phases[name].append(ms)
         for name, xs in phases.items():
-            ms = [round(x * 1e3, 3) for x in xs]
+            ms = [round(x, 3) for x in xs]
             print(f"trace_latency [{tag}] {name} median_ms="
                   f"{statistics.median(ms):.3f} trials_ms={ms} "
                   f"window_ms={TRACE_MS}", flush=True)
@@ -1424,7 +1290,7 @@ def main() -> int:
 
         parity_check(tag)
         control_phase(daemon_bin, dyno_bin, step_fn, make_batch, tag,
-                      max(phases["start_to_stop"]) * 1e3 - TRACE_MS)
+                      max(phases["start_to_stop"]) - TRACE_MS)
         retro_phase(daemon_bin, step_fn, make_batch, tag)
         parallel_phase(rpc, dyno_bin, port, tag)
     finally:
@@ -1435,6 +1301,7 @@ def main() -> int:
         stop_daemon(daemon)
 
     fleet_phase(daemon_bin, tag)
+    bench_phase(daemon_bin, dyno_bin, tag)
     return finish()
 
 
