@@ -69,10 +69,14 @@ without the final line:
              counted. `python3 chip_smoke.py --parallel-only` runs the
              build, the daemon and this phase alone (the four-card run).
   bench      `python -m dynolog_tpu_torch.bench --quick` in a subprocess
-             against the binaries built above, within 150 s: exit code 0,
+             against the binaries built above, within 240 s: exit code 0,
              a last line that parses, platform "gpu:...", a number under
-             every key the bench requires; its headline numbers, one
-             line each.
+             every key the bench requires, and every fleet outcome true
+             (capture windows intersect, the straggler flagged by the
+             sweep and by both tree paths, no orphan lost, the promoted
+             root expected_root's and then every live host fresh; the
+             bench itself fails on an auto-capture rule with no
+             artifact); its headline numbers, one line each.
 
 The port has no hand-written kernel (the JAX package has no Pallas
 kernel), so the kernel table it prints is empty. The last line is the
@@ -171,7 +175,7 @@ PARALLEL_TIMEOUT_S = 300
 # relative: tests/test_model.py's bf16 sharded-loss bound for the
 # flagship, the JAX MoE/pipeline tests' 2e-2 for the others.
 PARALLEL_REL = {"flagship": 5e-3, "moe": 2e-2, "pipe": 2e-2}
-BENCH_TIMEOUT_S = 150
+BENCH_TIMEOUT_S = 240
 
 
 def measure_overhead(step_fn, make_batch, tag):
@@ -1137,7 +1141,77 @@ def bench_phase(daemon_bin, dyno_bin, tag):
           f"{fr['ring']['ring_off_median_ms']:.3f} -> "
           f"{fr['ring']['ring_on_median_ms']:.3f} ms/step "
           f"({fr['ring']['vs_ring_off_pct']:+.3f}%)", flush=True)
+    bench_fleet_lines(d, tag)
     print(f"bench: phase took {time.monotonic() - t_phase:.1f} s", flush=True)
+
+
+def bench_fleet_lines(d, tag):
+    """The fleet and recovery phases of one bench record: a line each
+    with its headline numbers, and a check of every outcome bench.py's
+    assertions gate on."""
+    for n, f in d["fleet"].items():
+        check(f["windows_intersect"],
+              f"bench fleet {n}: capture windows do not intersect {f}")
+        print(f"bench [{tag}] fleet {n} hosts: fanout_rpc "
+              f"{f['fanout_rpc_ms']} ms, sync spread {f['sync_spread_ms']} "
+              f"ms, max sync error {f['max_sync_error_ms']} ms, all open "
+              f"{f['common_open_ms']} of {f['capture_window_ms']} ms",
+              flush=True)
+    rr = d["restart_recovery"]
+    print(f"bench [{tag}] restart_recovery {rr['hosts']} hosts x "
+          f"{rr['trials']}: recovery median {rr['recovery_ms']['median']} "
+          f"p95 {rr['recovery_ms']['p95']} ms, shim counters "
+          f"{rr['client_counters']}", flush=True)
+    fh = d["fleet_health"]
+    check(fh["straggler_detected"],
+          f"bench fleet_health: straggler not flagged alone {fh}")
+    print(f"bench [{tag}] fleet_health {fh['hosts']} hosts: sweep "
+          f"{fh['sweep_ms']} ms, straggler detected "
+          f"{fh['straggler_detected']}", flush=True)
+    ft = d["fleet_tree"]
+    check(ft["straggler_parity"],
+          f"bench fleet_tree: tree and flat do not both flag the straggler "
+          f"{ft}")
+    print(f"bench [{tag}] fleet_tree {ft['hosts']} hosts ({ft['relays']} "
+          f"relays): tree p95 {ft['tree_sweep_ms']['p95']} ms against flat "
+          f"p95 {ft['flat_sweep_ms']['p95']} ms, straggler parity "
+          f"{ft['straggler_parity']}", flush=True)
+    fs = d["fleet_selfheal"]
+    check(fs["lost_children"] == 0,
+          f"bench fleet_selfheal: {fs['lost_children']} orphan(s) never "
+          f"re-parented")
+    # root_promotion_s is set only once a sweep through a surviving seed
+    # names expected_root of the seeds left as root.
+    check(fs["root_promotion_s"] is not None,
+          "bench fleet_selfheal: expected_root's seed was never promoted")
+    check(fs["post_promotion_full_sweep_s"] is not None,
+          "bench fleet_selfheal: no sweep saw every live host fresh after "
+          "the promotion")
+    reparent = fs["reparent_s"] or {}
+    print(f"bench [{tag}] fleet_selfheal {fs['hosts']} hosts "
+          f"({fs['seeds']} seeds): re-parent p95 {reparent.get('p95')} s "
+          f"over {fs['reparented_children']} orphan(s), root promotion "
+          f"{fs['root_promotion_s'] * 1e3:.1f} ms, every live host fresh "
+          f"after {fs['post_promotion_full_sweep_s']} s, tree sweep p95 "
+          f"{fs['tree_sweep_ms']['p95']} ms against flat "
+          f"{fs['flat_sweep_ms']['p95']} ms", flush=True)
+    ej = d["event_journal"]
+    print(f"bench [{tag}] event_journal capacity {ej['ring_capacity']}: "
+          f"emit {ej['emit_rpc_ms_per_event']} ms/event, drain "
+          f"{ej['drain_ms_at_capacity']} ms for {ej['events_drained']} "
+          f"events", flush=True)
+    dm = d["degraded_mode"]
+    print(f"bench [{tag}] degraded_mode cadence ratio {dm['cadence_ratio']} "
+          f"(healthy {dm['healthy']['kernel_ticks_per_s']} / degraded "
+          f"{dm['degraded']['kernel_ticks_per_s']} ticks/s), tpu "
+          f"{dm['degraded']['tpu_state']}", flush=True)
+    # measure_autocapture itself fails the run on a rule that fired with
+    # no artifact, so one artifact a rule needs no check here.
+    ac = d["autocapture"]
+    print(f"bench [{tag}] autocapture {ac['firings']} rules on "
+          f"{ac['hosts']} hosts: first artifact median "
+          f"{ac['first_artifact_ms']['median']} p95 "
+          f"{ac['first_artifact_ms']['p95']} ms", flush=True)
 
 
 def main() -> int:

@@ -1,11 +1,16 @@
 """The port's headline benchmark: the monitoring stack's step-time
 overhead and its on-demand trace latency, with the client-side phases of
 the reference's ``bench.py``, on the torch shim and the flagship train
-step.
+step, then bench.py's fleet and recovery phases on the port's fleet code.
 
     python -m dynolog_tpu_torch.bench                  # one CUDA card
     python -m dynolog_tpu_torch.bench --quick          # fewest rounds
     python -m dynolog_tpu_torch.bench --device cpu --quick --tiny
+
+``--quick`` runs every phase in its fewest rounds and trials, the
+fan-out at 8 hosts only and the self-heal at 4 seeds + 20 leaves;
+``--tiny`` (for the CPU) a 2-layer flagship, one burner, and every
+fleet phase at 4 daemons or fewer and one trial.
 
 Phases, each a key of ``detail`` in the one JSON line printed last:
 
@@ -33,6 +38,25 @@ Phases, each a key of ``detail`` in the one JSON line printed last:
                        .json, and ms/step of the flagship under the
                        full client with the ring on against off
 
+The fleet and recovery phases leave the card idle and run in bench.py's
+order, each with its own daemons, on the port's minifleet (fake torch
+shim captures), fleetstatus, eventlog and RPC client:
+
+  fleet                {hosts: ...}: unitrace fan-out RPC to 8 and 64
+                       daemons and the spread of the synchronized starts
+  restart_recovery     SIGKILL + restart of a daemon -> the running shim
+                       re-registered, 4 hosts x 3 trials
+  fleet_health         a fleetstatus sweep of 4 daemons, one straggler
+  fleet_tree           one getFleetStatus to a 64-host relay tree's root
+                       against the flat sweep
+  fleet_selfheal       a fleet of 16 seeds + 240 leaves: sweeps, gang
+                       trigger, re-parenting after seed kills, root
+                       promotion
+  event_journal        emit cost per event, drain of a full 1024 ring
+  degraded_mode        kernel-collector cadence with the tpu collector
+                       stalled and the HTTP sink dead, against healthy
+  autocapture          watch rule firing -> first fake trace on 3 hosts
+
 It sets no target: a phase that fails ends the run with a non-zero exit
 code and the phase's name on stderr, and no JSON line. ``--device cuda``
 (the default) raises where CUDA is absent. The window machinery here is
@@ -46,11 +70,13 @@ import contextlib
 import dataclasses
 import faulthandler
 import glob
+import io
 import json
 import logging
 import math
 import os
 import pathlib
+import random
 import signal
 import statistics
 import subprocess
@@ -62,7 +88,7 @@ import time
 import torch
 
 from dynolog_tpu_torch.client import DynologClient
-from dynolog_tpu_torch.fleet import eventlog, minifleet
+from dynolog_tpu_torch.fleet import eventlog, fleetstatus, minifleet, unitrace
 from dynolog_tpu_torch.models.train import make_train_step, run_annotated_loop
 from dynolog_tpu_torch.models.transformer import (
     ModelConfig,
@@ -70,7 +96,7 @@ from dynolog_tpu_torch.models.transformer import (
     resolve_device,
 )
 from dynolog_tpu_torch.utils.procutil import wait_for_stderr
-from dynolog_tpu_torch.utils.rpc import DynoClient
+from dynolog_tpu_torch.utils.rpc import DynoClient, fan_out
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
@@ -112,6 +138,22 @@ class Sizes:
     fr_window_s: float = 4.0
     fr_firings: int = 3
     ring_rounds: int = 4
+    # The fleet and recovery phases: bench.py's defaults.
+    fleet_hosts: tuple[int, ...] = (8, 64)
+    restart_hosts: int = 4
+    restart_trials: int = 3
+    fstat_hosts: int = 4
+    tree_hosts: int = 64
+    tree_relays: int = 7
+    tree_trials: int = 15
+    heal_seeds: int = 16
+    heal_leaves: int = 240
+    heal_kill_trials: int = 3
+    heal_sweep_trials: int = 7
+    heal_trigger_trials: int = 3
+    journal_capacity: int = 1024
+    degraded_window_s: float = 5.0
+    autocapture_rules: int = 5
 
 
 FULL = Sizes()
@@ -119,7 +161,18 @@ FULL = Sizes()
 QUICK = Sizes(overhead_rounds=2, window_ms=500.0, min_steps=5,
               trace_warm=1, trace_trials=1, phase_window_s=1.0, burn_s=1.0,
               loaded_order="blb", fr_window_s=1.0, fr_firings=1,
-              ring_rounds=1)
+              ring_rounds=1, fleet_hosts=(8,), restart_trials=1,
+              tree_trials=3, heal_seeds=4, heal_leaves=20,
+              heal_kill_trials=1, heal_sweep_trials=3,
+              heal_trigger_trials=1, degraded_window_s=1.0,
+              autocapture_rules=2)
+# --tiny's fleet phases: at most 4 daemons each (a restart adds one),
+# a single trial.
+TINY_FLEET = dict(fleet_hosts=(4,), restart_hosts=2, restart_trials=1,
+                  fstat_hosts=4, tree_hosts=4, tree_relays=1, tree_trials=1,
+                  heal_seeds=3, heal_leaves=1, heal_kill_trials=1,
+                  heal_sweep_trials=1, heal_trigger_trials=1,
+                  degraded_window_s=1.0, autocapture_rules=1)
 
 
 class BenchError(RuntimeError):
@@ -168,15 +221,17 @@ def build_native() -> tuple[pathlib.Path, pathlib.Path, float]:
     raise BenchError("build produced no dynolog_tpu_daemon/dyno")
 
 
-def start_daemon(daemon_bin, *flags):
+def start_daemon(daemon_bin, *flags, env=None):
     """The daemon on --port 0 with fabric sockets in
-    $DYNOLOG_TPU_SOCKET_DIR and its collectors idle (later flags win).
-    Returns (proc, port); stop it with stop_daemon."""
+    $DYNOLOG_TPU_SOCKET_DIR and its collectors idle (later flags win),
+    in ``env`` (default: this process's environment). Returns
+    (proc, port); stop it with stop_daemon."""
     proc = subprocess.Popen(
         [str(daemon_bin), "--port", "0",
          "--kernel_monitor_interval_s", "3600",
          "--tpu_monitor_interval_s", "3600", *flags],
-        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
+        env=env)
     m, buf = wait_for_stderr(proc, r"rpc: listening on port (\d+)")
     if m is None:
         stop_daemon(proc)
@@ -194,7 +249,7 @@ def stop_daemon(proc):
 
 
 def _drained(started):
-    """start_daemon's result with the daemon's log drained: a collector
+    """A started daemon's (proc, port) with its log drained: a collector
     that ticks logs every tick, and a full pipe would block the daemon."""
     proc, port = started
     threading.Thread(target=proc.stderr.read, daemon=True).start()
@@ -823,6 +878,568 @@ def measure_ring_cost(daemon_bin, tmp, step_fn, make_batch, sync, sizes):
                 u["export_ms"] for u in ok)}
 
 
+def measure_fleet_fanout(daemon_bin, tmp, n_hosts=8):
+    """bench.py:measure_fleet_fanout on the port's minifleet: unitrace's
+    fan-out RPC to ``n_hosts`` local daemons, each with a registered
+    FakeCaptureClient (the torch shim without torch.profiler: one
+    profiler session per process, and every "host" shares this one), and
+    the spread of the synchronized capture starts. The numbers isolate
+    the control plane: RPC fan-out, config delivery, start alignment."""
+    delay_s = 2
+    daemons, clients = minifleet.spawn(daemon_bin, n_hosts, "dynbench")
+    try:
+        check(minifleet.wait_registered(daemons, timeout_s=60),
+              "fleet clients never registered")
+        duration_ms = 1000
+        args = unitrace.build_parser().parse_args([
+            "--hosts", ",".join(f"localhost:{p}" for _, p in daemons),
+            "--job-id", "fleet",
+            "--log-dir", os.path.join(tmp, f"fleet{n_hosts}"),
+            "--duration-ms", str(duration_ms),
+            "--start-time-delay-s", str(delay_s),
+        ])
+        t0 = time.time()
+        with contextlib.redirect_stdout(io.StringIO()):
+            out = unitrace.run(args)
+        fanout_ms = (time.time() - t0) * 1e3
+        check(out["ok"] == n_hosts, f"fleet trigger failed: {out['results']}")
+        start_s = out["start_time_ms"] / 1000.0
+        check(minifleet.wait_captures(clients, timeout_s=delay_s + 25),
+              "fleet captures did not complete")
+        starts = [c.trace_timing["trace_start"] for c in clients]
+        windows = minifleet.capture_windows(clients)
+        # How long all n windows were open at once (> 0: a shared instant).
+        common_open_ms = (min(w[1] for w in windows) -
+                          max(w[0] for w in windows)) * 1e3
+        return {
+            "hosts": n_hosts,
+            "fanout_rpc_ms": round(fanout_ms, 1),
+            "sync_spread_ms": round((max(starts) - min(starts)) * 1e3, 1),
+            "max_sync_error_ms": round(
+                max(abs(t - start_s) for t in starts) * 1e3, 1),
+            "start_delay_s": delay_s,
+            "capture_window_ms": duration_ms,
+            "common_open_ms": round(common_open_ms, 1),
+            "windows_intersect": common_open_ms > 0,
+        }
+    finally:
+        minifleet.teardown(daemons, clients)
+
+
+def measure_restart_recovery(daemon_bin, tmp, n_hosts=4, trials=3):
+    """bench.py:measure_restart_recovery on the port's minifleet: SIGKILL
+    one daemon, start a fresh one on the same socket (new epoch, empty
+    registry) and time until the running torch shim re-registers on its
+    own, over ``trials`` cycles with rotating victims; the shims'
+    recovery counters summed fleet-wide."""
+    daemons, clients = minifleet.spawn(
+        daemon_bin, n_hosts, "dynchaos", poll_interval_s=0.5)
+    try:
+        check(minifleet.wait_registered(daemons, timeout_s=30),
+              "fleet clients never registered")
+        recover_s = []
+        for trial in range(trials):
+            t0 = time.time()
+            minifleet.restart_daemon(daemons, trial % n_hosts, daemon_bin,
+                                     "dynchaos")
+            check(minifleet.wait_registered(daemons, timeout_s=30),
+                  f"client never re-registered after restart {trial}")
+            recover_s.append(time.time() - t0)
+        keys = ("daemon_restarts_detected", "reregistrations",
+                "reconnects", "reconnect_backoffs")
+        totals = {k: 0 for k in keys}
+        for c in clients:
+            counters = c.spans.counters()
+            for k in keys:
+                totals[k] += counters.get(k, 0)
+        return {
+            "hosts": n_hosts,
+            "trials": trials,
+            "recovery_ms": _stats([s * 1e3 for s in recover_s]),
+            "client_counters": totals,
+        }
+    finally:
+        minifleet.teardown(daemons, clients)
+
+
+def _inject_duty_cycle(port, base, rng, now_ms, points, devs=1):
+    """putHistory ``points`` 1 s samples of tensorcore_duty_cycle_pct
+    around ``base`` (jitter +-0.3 from ``rng``) for each of ``devs``
+    devices, as bench.py's fleet health phases do."""
+    rpc = DynoClient(port=port)
+    for dev in range(devs):
+        rpc.put_history(
+            f"tensorcore_duty_cycle_pct.dev{dev}",
+            [(now_ms - (points - k) * 1000, base + rng.uniform(-0.3, 0.3))
+             for k in range(points)])
+
+
+def measure_fleetstatus(daemon_bin, tmp, n_hosts=4, straggler=2):
+    """bench.py:measure_fleetstatus: ``n_hosts`` daemons with injected
+    history, host ``straggler``'s duty cycle ~30 % low, then the time of
+    one fleetstatus sweep and whether it flagged that host alone."""
+    rng = random.Random(42)
+    daemons = minifleet.spawn_daemons(
+        daemon_bin, n_hosts, "dynfstat",
+        daemon_args=("--enable_history_injection",))
+    try:
+        now_ms = int(time.time() * 1000)
+        for i, (_, port) in enumerate(daemons):
+            base = 70.0 * (0.7 if i == straggler else 1.0) \
+                + rng.uniform(-0.5, 0.5)
+            _inject_duty_cycle(port, base, rng, now_ms, 60, devs=2)
+        hosts = [f"localhost:{p}" for _, p in daemons]
+        t0 = time.time()
+        verdict = fleetstatus.sweep(hosts, window_s=300)
+        sweep_ms = (time.time() - t0) * 1e3
+        flagged = {o["host"] for o in verdict["outliers"]}
+        return {
+            "hosts": n_hosts,
+            "sweep_ms": round(sweep_ms, 1),
+            "straggler_detected": flagged == {hosts[straggler]},
+            "outliers": [
+                {"host": o["host"], "metric": o["metric"], "z": o["z"]}
+                for o in verdict["outliers"]],
+        }
+    finally:
+        minifleet.teardown(daemons, [])
+
+
+def _port_of(host):
+    """The port of a ``host:port`` id: tree ids carry the hostname, flat
+    ones localhost."""
+    return host.rsplit(":", 1)[1]
+
+
+def measure_fleet_tree(daemon_bin, tmp, n_hosts=64, relays=7, trials=15):
+    """bench.py:measure_fleet_tree: the same daemons swept two ways, one
+    getFleetStatus to the root of a 2-level relay tree against the flat
+    fan-out (getAggregates + getStatus per host), each scoring one
+    injected straggler leaf."""
+    leaves = (n_hosts - 1 - relays) // relays
+    rng = random.Random(42)
+    daemons = minifleet.spawn_tree(
+        daemon_bin, "dyntree", leaves=leaves, relays=relays,
+        daemon_args=("--enable_history_injection",
+                     "--fleet_report_interval_s", "1",
+                     "--fleet_stale_after_s", "15"))
+    try:
+        ports = [p for _, p in daemons]
+        root = f"localhost:{ports[0]}"
+        straggler = len(ports) - 1  # a leaf: two hops from the root
+        now_ms = int(time.time() * 1000)
+        for i, port in enumerate(ports):
+            base = 70.0 * (0.7 if i == straggler else 1.0) \
+                + rng.uniform(-0.5, 0.5)
+            _inject_duty_cycle(port, base, rng, now_ms, 30)
+        # Every host's record rides a report up both hops before timing.
+        deadline = time.time() + 90
+        while time.time() < deadline:
+            v = fleetstatus.tree_sweep(root, window_s=300, timeout_s=5.0)
+            scored = (v or {}).get("metrics", {}).get(
+                "tensorcore_duty_cycle_pct", {}).get("values", {})
+            if len(scored) == len(ports):
+                break
+            time.sleep(0.5)
+        else:
+            raise BenchError(f"relay tree never converged to {len(ports)} "
+                             f"hosts (last saw {len(scored)})")
+
+        tree_ms, flat_ms = [], []
+        tree_v = flat_v = None
+        for _ in range(trials):
+            t0 = time.time()
+            tree_v = fleetstatus.tree_sweep(root, window_s=300,
+                                            timeout_s=5.0)
+            tree_ms.append((time.time() - t0) * 1e3)
+        hosts = [f"localhost:{p}" for p in ports]
+        for _ in range(trials):
+            t0 = time.time()
+            flat_v = fleetstatus.sweep(hosts, window_s=300)
+            flat_ms.append((time.time() - t0) * 1e3)
+        tree_flagged = {_port_of(o["host"]) for o in tree_v["outliers"]}
+        flat_flagged = {_port_of(o["host"]) for o in flat_v["outliers"]}
+        return {
+            "hosts": len(ports), "relays": relays,
+            "leaves_per_relay": leaves, "trials": trials,
+            "tree_sweep_ms": _stats(tree_ms),
+            "flat_sweep_ms": _stats(flat_ms),
+            "tree_rpcs_per_sweep": 1,
+            "flat_rpcs_per_sweep": 2 * len(ports),
+            "straggler_parity": tree_flagged == flat_flagged
+            == {_port_of(hosts[straggler])},
+        }
+    finally:
+        minifleet.teardown(daemons, [])
+
+
+def measure_fleet_selfheal(daemon_bin, tmp, seeds=16, leaves=240,
+                           kill_trials=3, sweep_trials=7,
+                           trigger_trials=3):
+    """bench.py:measure_fleet_selfheal: ``seeds`` + ``leaves`` daemons
+    that form their tree from one --fleet_seeds list, then
+
+    - sweep cost: tree_sweep through the root against the flat sweep;
+    - gang-trigger delivery: one fleetTrace to the root against the flat
+      setOnDemandTraceRequest fan-out (nothing is registered, so this
+      times delivery alone);
+    - re-parent convergence: SIGKILL an interior seed with children,
+      one per trial, and time each orphan's re-registration elsewhere
+      (None where no seed but the root has a child);
+    - root promotion: SIGKILL the root and time until the next
+      rendezvous winner answers as root through a surviving seed, then
+      until a sweep sees every live host fresh (each None where it did
+      not happen within the phase's deadline).
+
+    Unlike bench.py, it drains every daemon's log: the phase holds up to
+    256 daemons for over a minute, and a full pipe would block one."""
+    daemons, seed_list = minifleet.spawn_seeded(
+        daemon_bin, "dynheal", seeds=seeds, leaves=leaves,
+        daemon_args=("--fleet_report_interval_s", "1",
+                     "--fleet_stale_after_s", "2"))
+    for d in daemons:
+        _drained(d)
+    rng = random.Random(1234)
+    try:
+        ports = [p for _, p in daemons]
+        dead_ports: set = set()
+
+        def tree_status(port):
+            try:
+                return DynoClient(port=port, timeout=3.0).status().get(
+                    "fleettree") or {}
+            except Exception:
+                return {}
+
+        def wait_fresh(via_port, timeout_s):
+            """Seconds until a sweep through via_port has every live port
+            fresh, or None on timeout."""
+            want = {str(p) for p in ports if p not in dead_ports}
+            t0 = time.time()
+            while time.time() - t0 < timeout_s:
+                v = fleetstatus.tree_sweep(
+                    f"localhost:{via_port}", window_s=300, timeout_s=5.0)
+                if v is not None:
+                    fresh = ({_port_of(h) for h in v["hosts"]}
+                             - {_port_of(u["host"])
+                                for u in v["unreachable"]})
+                    if want <= fresh:
+                        return time.time() - t0
+                time.sleep(0.25)
+            return None
+
+        current_root = minifleet.expected_root(seed_list)
+        check(wait_fresh(int(_port_of(current_root)), 180.0) is not None,
+              f"seeded fleet never converged to {len(ports)} hosts")
+
+        tree_ms, flat_ms = [], []
+        for _ in range(sweep_trials):
+            t0 = time.time()
+            v = fleetstatus.tree_sweep(
+                f"localhost:{_port_of(current_root)}", window_s=300,
+                timeout_s=10.0)
+            tree_ms.append((time.time() - t0) * 1e3)
+        check(v is not None, "tree sweep through the root failed")
+        hosts = [f"localhost:{p}" for p in ports]
+        for _ in range(sweep_trials):
+            t0 = time.time()
+            fleetstatus.sweep(hosts, window_s=300)
+            flat_ms.append((time.time() - t0) * 1e3)
+
+        config = "ACTIVITIES_DURATION_MSECS=50"
+        tree_trig_ms, flat_trig_ms = [], []
+        root_client = DynoClient(port=int(_port_of(current_root)),
+                                 timeout=60.0)
+        for t in range(trigger_trials):
+            t0 = time.time()
+            resp = root_client.fleet_trace(config, f"healtree{t}")
+            tree_trig_ms.append((time.time() - t0) * 1e3)
+            check(resp.get("total", 0) == len(ports),
+                  f"fleetTrace reached {resp.get('total')} of "
+                  f"{len(ports)} hosts")
+        for t in range(trigger_trials):
+            req = {"fn": "setOnDemandTraceRequest", "config": config,
+                   "job_id": f"healflat{t}", "pids": [],
+                   "process_limit": 3}
+            t0 = time.time()
+            fan_out([("localhost", p, req) for p in ports], timeout=30.0)
+            flat_trig_ms.append((time.time() - t0) * 1e3)
+
+        # Re-parent convergence: one interior seed killed per trial, no
+        # restarts; every orphan's re-registration elsewhere is a sample.
+        reparent_s = []
+        lost_children = 0
+        for _ in range(kill_trials):
+            root_port = _port_of(current_root)
+            victims = [
+                (i, p) for i, p in enumerate(ports[:seeds])
+                if p not in dead_ports and str(p) != root_port
+                and tree_status(p).get("children")]
+            if not victims:
+                break
+            idx, victim = rng.choice(victims)
+            orphans = [int(_port_of(c["node"]))
+                       for c in tree_status(victim)["children"]]
+            minifleet.kill_daemon(daemons, idx)
+            dead_ports.add(victim)
+            t0 = time.time()
+            pending = set(orphans)
+            while pending and time.time() - t0 < 30.0:
+                for p in sorted(pending):
+                    parent = tree_status(p).get("parent") or {}
+                    if parent.get("registered") and \
+                            parent.get("port") != victim:
+                        reparent_s.append(time.time() - t0)
+                        pending.discard(p)
+                time.sleep(0.05)
+            lost_children += len(pending)
+
+        # Root promotion: kill the root; the next rendezvous winner must
+        # answer as root through a surviving seed's address.
+        live_seeds = [s for s in seed_list
+                      if int(_port_of(s)) not in dead_ports]
+        old_root = minifleet.expected_root(live_seeds)
+        new_root = minifleet.expected_root(
+            [s for s in live_seeds if s != old_root])
+        idx = next(i for i, p in enumerate(ports)
+                   if str(p) == _port_of(old_root))
+        minifleet.kill_daemon(daemons, idx)
+        dead_ports.add(ports[idx])
+        via = next(int(_port_of(s)) for s in live_seeds if s != old_root)
+        t0 = time.time()
+        promoted_s = None
+        while time.time() - t0 < 30.0:
+            v = fleetstatus.tree_sweep(
+                f"localhost:{via}", window_s=300, timeout_s=5.0)
+            if v is not None and \
+                    _port_of(v.get("root", "")) == _port_of(new_root):
+                promoted_s = time.time() - t0
+                break
+            time.sleep(0.25)
+        settled_s = wait_fresh(via, 60.0)
+
+        return {
+            "hosts": len(ports), "seeds": seeds,
+            "kill_trials": kill_trials,
+            "reparented_children": len(reparent_s),
+            "lost_children": lost_children,
+            "reparent_s": _stats(reparent_s) if reparent_s else None,
+            "root_promotion_s":
+                round(promoted_s, 3) if promoted_s else None,
+            "post_promotion_full_sweep_s":
+                round(settled_s, 3) if settled_s else None,
+            "tree_sweep_ms": _stats(tree_ms),
+            "flat_sweep_ms": _stats(flat_ms),
+            "gang_trigger_tree_ms": _stats(tree_trig_ms),
+            "gang_trigger_flat_ms": _stats(flat_trig_ms),
+        }
+    finally:
+        minifleet.teardown(daemons, [])
+
+
+def measure_event_journal(daemon_bin, tmp, capacity=1024):
+    """bench.py:measure_event_journal: the emit path's cost per event
+    (each setOnDemandTraceRequest journals one trace_config_staged, so
+    the figure holds a whole RPC round trip) and the getEvents drain of
+    a journal overfilled past ``capacity``, cursor batches included."""
+    daemons = minifleet.spawn_daemons(
+        daemon_bin, 1, "dynevt",
+        daemon_args=("--event_journal_capacity", str(capacity)))
+    try:
+        client = DynoClient(port=daemons[0][1])
+        n = capacity + 64  # overfilled: the drain meets a wrapped ring
+        t0 = time.time()
+        for i in range(n):
+            client.set_trace_config(f"benchjob{i}", {"duration_ms": 1})
+        emit_ms = (time.time() - t0) * 1e3 / n
+        t0 = time.time()
+        got = eventlog.fetch_all_events(client, limit=512)
+        drain_ms = (time.time() - t0) * 1e3
+        journal = client.get_events(limit=1)["journal"]
+        return {
+            "ring_capacity": capacity,
+            "staged_events": n,
+            "emit_rpc_ms_per_event": round(emit_ms, 3),
+            "drain_ms_at_capacity": round(drain_ms, 1),
+            "events_drained": len(got["events"]),
+            "evicted_total": journal["dropped"],
+        }
+    finally:
+        minifleet.teardown(daemons, [])
+
+
+def measure_degraded_mode(daemon_bin, tmp, window_s=5.0):
+    """bench.py:measure_degraded_mode: the kernel collector's cadence and
+    getStatus latency over ``window_s`` in a healthy daemon and in one
+    whose tpu collector is stalled for good (the daemon reads the
+    faultline spec from DYNOLOG_TPU_FAULTS_FILE) and whose HTTP sink
+    points at a dead endpoint, once the stalled collector is
+    quarantined; with the supervision and sink counters."""
+    interval_s = 0.1
+
+    def run_phase(faulted):
+        env = dict(os.environ)
+        extra = []
+        if faulted:
+            faults = os.path.join(tmp, "bench_faults")
+            with open(faults, "w") as f:
+                f.write("collector_tpu.stall_ms=600000\n")
+            env["DYNOLOG_TPU_FAULTS_FILE"] = faults
+            extra = ["--http_sink_endpoint", "127.0.0.1:9/ingest",
+                     "--sink_queue_capacity", "8"]
+        proc, port = _drained(start_daemon(
+            daemon_bin,
+            "--kernel_monitor_interval_s", str(interval_s),
+            "--tpu_monitor_interval_s", str(interval_s),
+            "--enable_perf_monitor=false",
+            "--collector_deadline_ms", "300",
+            "--collector_quarantine_after", "2",
+            "--collector_probe_interval_ms", "300",
+            "--ipc_socket_name", "benchdegraded",
+            *extra, env=env))
+        try:
+            client = DynoClient(port=port)
+
+            def kernel_ticks():
+                return (client.status().get("collectors", {})
+                        .get("kernel", {}).get("ticks", 0))
+
+            deadline = time.time() + 20
+            while kernel_ticks() < 2 and time.time() < deadline:
+                time.sleep(0.1)
+            if faulted:
+                # Steady state (quarantine), not the transition.
+                while time.time() < deadline:
+                    h = client.status().get("collector_health", {})
+                    if h.get("tpu", {}).get("state") == "quarantined":
+                        break
+                    time.sleep(0.1)
+            t0 = time.monotonic()
+            n0 = kernel_ticks()
+            rpc_ms = []
+            t_end = t0 + window_s
+            while time.monotonic() < t_end:
+                r0 = time.perf_counter()
+                status = client.status()
+                rpc_ms.append((time.perf_counter() - r0) * 1e3)
+                time.sleep(0.05)
+            n1 = kernel_ticks()
+            elapsed = time.monotonic() - t0
+            out = {
+                "kernel_ticks_per_s": round((n1 - n0) / elapsed, 3),
+                "rpc_getstatus_ms": _stats(rpc_ms),
+            }
+            if faulted:
+                out["tpu_state"] = (status.get("collector_health", {})
+                                    .get("tpu", {}).get("state"))
+                out["sink_http"] = status.get("sinks", {}).get("http")
+                counters = client.call("getSelfTelemetry")["counters"]
+                out["supervision_counters"] = {
+                    k: counters.get(k, 0)
+                    for k in ("collector_restarts",
+                              "collector_deadline_misses",
+                              "collector_quarantines")}
+            return out
+        finally:
+            stop_daemon(proc)
+
+    healthy = run_phase(faulted=False)
+    degraded = run_phase(faulted=True)
+    return {
+        "window_s": window_s,
+        "collector_interval_s": interval_s,
+        "nominal_ticks_per_s": 1.0 / interval_s,
+        "healthy": healthy,
+        "degraded": degraded,
+        "cadence_ratio": round(
+            degraded["kernel_ticks_per_s"]
+            / max(1e-9, healthy["kernel_ticks_per_s"]), 3),
+    }
+
+
+def measure_autocapture(daemon_bin, tmp, rules=5):
+    """bench.py:measure_autocapture on the port's minifleet: a flagged
+    daemon and two ring neighbours, each with a FakeCaptureClient that
+    writes ``fake_<endpoint>.pt.trace.json``; ``rules`` watch rules
+    fired one at a time by injected history, each timed from its
+    autocapture_fired stamp to the first artifact any host wrote."""
+    log_dir = os.path.join(tmp, "autocap_bench")
+    watch = ",".join(
+        f"bench_ac_metric{i}<20:60:trace(300)" for i in range(rules))
+    neighbors, n_clients = minifleet.spawn(
+        daemon_bin, 2, "acbnb", poll_interval_s=0.1, write_fake_trace=True)
+    flagged, f_clients = [], []
+    try:
+        peers = ",".join(f"localhost:{p}" for _, p in neighbors)
+        flagged, f_clients = minifleet.spawn(
+            daemon_bin, 1, "acbfl",
+            daemon_args=("--enable_history_injection",
+                         "--watch", watch,
+                         "--watch_interval_s", "0.2",
+                         "--watch_z_threshold", "0",
+                         "--capture_peers", peers,
+                         "--capture_neighbors", "2",
+                         "--capture_cooldown_s", "0",
+                         "--capture_log_dir", log_dir,
+                         "--capture_job_id", "fleet",
+                         "--capture_start_delay_ms", "100"),
+            poll_interval_s=0.1, write_fake_trace=True)
+        check(minifleet.wait_registered(neighbors + flagged, timeout_s=30),
+              "autocapture fleet never registered")
+        port = flagged[0][1]
+        client = DynoClient(port=port)
+
+        def fired_events():
+            got = eventlog.fetch_all_events(DynoClient(port=port))
+            return [e for e in got["events"]
+                    if e["type"] == "autocapture_fired"]
+
+        def traces():
+            return set(glob.glob(
+                os.path.join(log_dir, "**", "*.pt.trace.json"),
+                recursive=True))
+
+        latencies_ms = []
+        for i in range(rules):
+            # A repeat capture rewrites each host's fake trace in place:
+            # a new artifact is a path whose mtime passed the snapshot.
+            seen = {p: os.path.getmtime(p) for p in traces()}
+            now_ms = int(time.time() * 1000)
+            client.put_history(
+                f"bench_ac_metric{i}.dev0",
+                [(now_ms - (30 - k) * 1000, 5.0) for k in range(30)])
+            deadline = time.time() + 15
+            fired = None
+            while time.time() < deadline:
+                ev = fired_events()
+                if len(ev) == i + 1:
+                    fired = ev[i]
+                    break
+                time.sleep(0.05)
+            check(fired is not None, f"rule {i} never fired")
+            fresh = []
+            while time.time() < deadline and not fresh:
+                fresh = [os.path.getmtime(p) for p in traces()
+                         if os.path.getmtime(p) > seen.get(p, 0.0)]
+                if not fresh:
+                    time.sleep(0.02)
+            check(fresh, f"rule {i} fired but no artifact")
+            latencies_ms.append(min(fresh) * 1000 - fired["ts_ms"])
+            # Every host closes this window before the next rule fires:
+            # a client mid-capture drops incoming configs.
+            check(minifleet.wait_captures(f_clients + n_clients, count=i + 1,
+                                          timeout_s=15),
+                  f"capture {i} never completed")
+        return {
+            "hosts": 3,
+            "firings": rules,
+            "first_artifact_ms": _stats(latencies_ms),
+            "capture_start_delay_ms": 100,
+        }
+    finally:
+        minifleet.teardown(neighbors + flagged, n_clients + f_clients)
+
+
 # The numbers every run reports, by phase: main() fails a run that
 # leaves one out. The fallback client streams nothing, so it has no
 # stop_to_stream_commit.
@@ -846,6 +1463,22 @@ REQUIRED = {
                         "ring.ring_off_ms", "ring.ring_on_ms",
                         "ring.ring_off_median_ms", "ring.ring_on_median_ms",
                         "ring.vs_ring_off_pct"),
+    # "*": every host count the run swept.
+    "fleet": ("*.fanout_rpc_ms", "*.sync_spread_ms", "*.max_sync_error_ms",
+              "*.common_open_ms"),
+    "restart_recovery": ("recovery_ms",),
+    "fleet_health": ("sweep_ms",),
+    "fleet_tree": ("tree_sweep_ms", "flat_sweep_ms"),
+    # Not reparent_s, root_promotion_s, post_promotion_full_sweep_s:
+    # outcomes, None where the fleet did not converge in time.
+    "fleet_selfheal": ("tree_sweep_ms", "flat_sweep_ms",
+                       "gang_trigger_tree_ms", "gang_trigger_flat_ms"),
+    "event_journal": ("emit_rpc_ms_per_event", "drain_ms_at_capacity"),
+    "degraded_mode": ("cadence_ratio", "healthy.kernel_ticks_per_s",
+                      "healthy.rpc_getstatus_ms",
+                      "degraded.kernel_ticks_per_s",
+                      "degraded.rpc_getstatus_ms"),
+    "autocapture": ("first_artifact_ms",),
 }
 
 
@@ -859,17 +1492,25 @@ def _is_number(x):
             and math.isfinite(x))
 
 
+def _values_at(x, parts):
+    """The values under the dotted path ``parts`` of ``x``; a ``*`` part
+    stands for every value of a dict (none: [None])."""
+    if not parts:
+        return [x]
+    if not isinstance(x, dict):
+        return [None]
+    if parts[0] == "*":
+        return [v for sub in x.values() for v in _values_at(sub, parts[1:])
+                ] or [None]
+    return _values_at(x.get(parts[0]), parts[1:])
+
+
 def missing_numbers(detail) -> list[str]:
     """The REQUIRED keys of ``detail`` that hold no number."""
-    missing = []
-    for phase, keys in REQUIRED.items():
-        for key in keys:
-            x = detail.get(phase)
-            for part in key.split("."):
-                x = x.get(part) if isinstance(x, dict) else None
-            if not _is_number(x):
-                missing.append(f"{phase}.{key}")
-    return missing
+    return [f"{phase}.{key}" for phase, keys in REQUIRED.items()
+            for key in keys
+            if not all(map(_is_number,
+                           _values_at(detail.get(phase), key.split("."))))]
 
 
 @contextlib.contextmanager
@@ -900,7 +1541,8 @@ def parse_args(argv=None):
                         "windows that give each key a number")
     p.add_argument("--tiny", action="store_true",
                    help="for the CPU: a 2-layer, d_model-64 flagship, "
-                        "one burner of at most 0.5 s")
+                        "one burner of at most 0.5 s, every fleet phase "
+                        "at 4 daemons or fewer and one trial")
     args = p.parse_args(argv)
     if (args.daemon_bin is None) != (args.dyno_bin is None):
         p.error("--daemon-bin and --dyno-bin go together")
@@ -915,7 +1557,8 @@ def main(argv=None) -> int:
     cfg, batch, seq = FLAGSHIP, BATCH, SEQ
     if args.tiny:
         sizes = dataclasses.replace(sizes, burners=1,
-                                    burn_s=min(sizes.burn_s, 0.25))
+                                    burn_s=min(sizes.burn_s, 0.25),
+                                    **TINY_FLEET)
         cfg, batch, seq = TINY, TINY_BATCH, TINY_SEQ
     if device.type == "cuda":
         platform = (f"gpu:{torch.cuda.get_device_name(0)}"
@@ -981,6 +1624,34 @@ def main(argv=None) -> int:
     with _phase("flight_recorder", phase_s):
         detail["flight_recorder"] = {
             **measure_flight_recorder(daemon_bin, tmp, sizes), "ring": ring}
+    # The fleet and recovery phases, in bench.py's order.
+    detail["fleet"] = {}
+    for n in sizes.fleet_hosts:
+        with _phase(f"fleet_{n}", phase_s):
+            detail["fleet"][str(n)] = measure_fleet_fanout(daemon_bin, tmp,
+                                                           n_hosts=n)
+    for key, measure, kw in (
+            ("restart_recovery", measure_restart_recovery,
+             {"n_hosts": sizes.restart_hosts,
+              "trials": sizes.restart_trials}),
+            ("fleet_health", measure_fleetstatus,
+             {"n_hosts": sizes.fstat_hosts}),
+            ("fleet_tree", measure_fleet_tree,
+             {"n_hosts": sizes.tree_hosts, "relays": sizes.tree_relays,
+              "trials": sizes.tree_trials}),
+            ("fleet_selfheal", measure_fleet_selfheal,
+             {"seeds": sizes.heal_seeds, "leaves": sizes.heal_leaves,
+              "kill_trials": sizes.heal_kill_trials,
+              "sweep_trials": sizes.heal_sweep_trials,
+              "trigger_trials": sizes.heal_trigger_trials}),
+            ("event_journal", measure_event_journal,
+             {"capacity": sizes.journal_capacity}),
+            ("degraded_mode", measure_degraded_mode,
+             {"window_s": sizes.degraded_window_s}),
+            ("autocapture", measure_autocapture,
+             {"rules": sizes.autocapture_rules})):
+        with _phase(key, phase_s):
+            detail[key] = measure(daemon_bin, tmp, **kw)
 
     missing = missing_numbers(detail)
     check(not missing, f"bench: no number for {missing}")

@@ -9,7 +9,8 @@ reference's ``bench.py``, on the CPU.
   * a capture's trace_timing stamps turn into the latency breakdown;
   * ``--device cuda`` without a card exits non-zero and names CUDA;
   * one ``--device cpu --quick --tiny`` run prints one JSON line with a
-    number under every key the bench requires.
+    number under every key the bench requires, the fleet and recovery
+    phases among them at ``--tiny``'s sizes.
 
 The runs use the session's built binaries (no build here), a short
 socket dir from tempfile, one torch thread, a deadline on every wait,
@@ -174,3 +175,20 @@ def test_quick_tiny_run_prints_a_number_for_every_key(native_build):
     assert not fallback["push"] and not fallback["stream"]
     assert fallback["deliveries"] == ["poll"]
     assert "stop_to_stream_commit" not in fallback["phases_ms"]
+    # bench.py's fleet and recovery phases, at --tiny's <= 4 daemons and
+    # a single trial, each with its outcome.
+    assert {"fleet", "restart_recovery", "fleet_health", "fleet_tree",
+            "fleet_selfheal", "event_journal", "degraded_mode",
+            "autocapture"} <= set(bench.REQUIRED)
+    assert list(d["fleet"]) == ["4"] and d["fleet"]["4"]["windows_intersect"]
+    assert (d["restart_recovery"]["hosts"],
+            d["restart_recovery"]["trials"]) == (2, 1)
+    assert d["fleet_health"]["straggler_detected"]
+    assert (d["fleet_tree"]["hosts"], d["fleet_tree"]["trials"]) == (4, 1)
+    assert d["fleet_tree"]["straggler_parity"]
+    heal = d["fleet_selfheal"]
+    assert (heal["hosts"], heal["kill_trials"]) == (4, 1)
+    assert d["degraded_mode"]["degraded"]["tpu_state"] == "quarantined"
+    assert (d["autocapture"]["firings"], d["autocapture"]["hosts"]) == (1, 3)
+    assert [k for k in d["phase_s"] if k.startswith("fleet_")] == [
+        "fleet_4", "fleet_health", "fleet_tree", "fleet_selfheal"]
