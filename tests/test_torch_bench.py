@@ -9,8 +9,9 @@ reference's ``bench.py``, on the CPU.
   * a capture's trace_timing stamps turn into the latency breakdown;
   * ``--device cuda`` without a card exits non-zero and names CUDA;
   * one ``--device cpu --quick --tiny`` run prints one JSON line with a
-    number under every key the bench requires, the fleet and recovery
-    phases among them at ``--tiny``'s sizes.
+    number under every key the bench requires, the fleet, recovery and
+    daemon-side phases among them at ``--tiny``'s sizes, each with the
+    outcome bench.py's assertions gate on.
 
 The runs use the session's built binaries (no build here), a short
 socket dir from tempfile, one torch thread, a deadline on every wait,
@@ -40,7 +41,7 @@ from dynolog_tpu_torch import bench
 from dynolog_tpu_torch.models import transformer as ttf
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-RUN_TIMEOUT_S = 150
+RUN_TIMEOUT_S = 240
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -191,4 +192,31 @@ def test_quick_tiny_run_prints_a_number_for_every_key(native_build):
     assert d["degraded_mode"]["degraded"]["tpu_state"] == "quarantined"
     assert (d["autocapture"]["firings"], d["autocapture"]["hosts"]) == (1, 3)
     assert [k for k in d["phase_s"] if k.startswith("fleet_")] == [
-        "fleet_4", "fleet_health", "fleet_tree", "fleet_selfheal"]
+        "fleet_4", "fleet_health", "fleet_tree", "fleet_selfheal",
+        "fleet_scale"]
+    # bench.py's last seven phases, in its order, at --tiny's sizes.
+    new = ["durability", "sketch_quantiles", "read_swarm", "multitenant",
+           "link_localization", "subscription", "fleet_scale"]
+    assert set(new) <= set(bench.REQUIRED)
+    assert list(d["phase_s"])[-len(new):] == new
+    assert d["durability"]["recovered"]["frames"] > 0
+    assert d["durability"]["store_at_kill"]["evictions_total"] > 0
+    assert d["sketch_quantiles"]["samples_per_workload"] == 20_000
+    assert d["read_swarm"]["errors"] == 0
+    mt = d["multitenant"]
+    assert (mt["storm_hosts"], mt["storm_lost_children"],
+            mt["storm_auth_rejected_total"]) == (4, 0, 0)
+    assert mt["abuser"]["shed"] > 0
+    link = d["link_localization"]
+    assert link["hosts"] == 4 and link["exact_edge"]
+    assert link["false_positive_hosts"] == 0
+    sub = d["subscription"]
+    assert sub["tree"]["daemons"] == 4 and sub["delivery_ratio"] >= 1.0
+    scale = d["fleet_scale"]
+    assert (scale["interiors"], scale["lost_children"]) == (3, 0)
+    assert scale["converge_after_kill_s"] is not None
+    # Other tests' daemons share the host: only the keys are fixed.
+    state = d["host_state"]
+    assert list(state) == ["start", *bench.DAEMON_PHASES]
+    assert all(set(s) == {"open_fds", "threads", "nofile_soft",
+                          "live_daemons"} for s in state.values())

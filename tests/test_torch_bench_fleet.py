@@ -19,54 +19,18 @@ paths), at most 4 daemons a phase (a restart adds one), and a deadline
 on every phase.
 """
 
-import faulthandler
 import glob
 import os
-import shutil
-import tempfile
-import threading
-
-import pytest
 
 import bench as ref_bench
 from dynolog_tpu.fleet import fleetstatus as ref_fleetstatus
 from dynolog_tpu.fleet import minifleet as ref_minifleet
 from dynolog_tpu_torch import bench
 from dynolog_tpu_torch.fleet import fleetstatus, minifleet
-
-TINY = bench.TINY_FLEET
-PHASE_TIMEOUT_S = 120
-
-
-@pytest.fixture
-def sock_dir(monkeypatch):
-    d = tempfile.mkdtemp(prefix="dtbf")
-    monkeypatch.setenv("DYNOLOG_TPU_SOCKET_DIR", d)
-    yield d
-    shutil.rmtree(d, ignore_errors=True)
-
-
-def _bounded(fn, *args, **kwargs):
-    """fn(*args, **kwargs) on a thread, failed past PHASE_TIMEOUT_S with
-    every thread's stack on stderr; its exception is re-raised here."""
-    out = {}
-
-    def run():
-        try:
-            out["value"] = fn(*args, **kwargs)
-        except BaseException as e:  # re-raised on the test's thread
-            out["error"] = e
-
-    t = threading.Thread(target=run, daemon=True)
-    t.start()
-    t.join(PHASE_TIMEOUT_S)
-    if t.is_alive():
-        faulthandler.dump_traceback(all_threads=True)
-        pytest.fail(f"{fn.__module__}.{fn.__name__} ran past "
-                    f"{PHASE_TIMEOUT_S} s")
-    if "error" in out:
-        raise out["error"]
-    return out["value"]
+from torch_bench_util import TINY, sock_dir  # noqa: F401 (a fixture)
+from torch_bench_util import bounded as _bounded
+from torch_bench_util import held as _held
+from torch_bench_util import spy as _spy
 
 
 def _both(daemon_bin, tmp_path, name, **kwargs):
@@ -79,46 +43,6 @@ def _both(daemon_bin, tmp_path, name, **kwargs):
         got.append(_bounded(getattr(mod, name), daemon_bin, str(tmp),
                             **kwargs))
     return got
-
-
-def _spy(monkeypatch, module, name):
-    """Records what every call of module.name returns (and its args)."""
-    calls = []
-    real = getattr(module, name)
-
-    def wrapper(*args, **kwargs):
-        value = real(*args, **kwargs)
-        calls.append((args, kwargs, value))
-        return value
-
-    monkeypatch.setattr(module, name, wrapper)
-    return calls
-
-
-def _same_keys(ref, port, path=""):
-    """The reference's keys at every level of nesting, in the port's
-    result; a None on either side (a sample that did not occur) stops
-    the descent."""
-    if ref is None or port is None:
-        return
-    if isinstance(ref, dict):
-        assert isinstance(port, dict), path
-        assert set(port) == set(ref), (path, sorted(port), sorted(ref))
-        for k in ref:
-            _same_keys(ref[k], port[k], f"{path}.{k}")
-    elif isinstance(ref, list) and ref and port:
-        _same_keys(ref[0], port[0], f"{path}[0]")
-    else:
-        assert type(port) is type(ref) or (
-            isinstance(port, (int, float)) and isinstance(ref, (int, float))
-            and not isinstance(port, bool)), (path, port, ref)
-
-
-def _held(key, ref, port):
-    _same_keys(ref, port, key)
-    missing = [m for m in bench.missing_numbers({key: port})
-               if m.startswith(f"{key}.")]
-    assert missing == []
 
 
 def test_fleet_fanout(daemon_bin, tmp_path, sock_dir):
