@@ -26,6 +26,8 @@ RUN apt-get update && apt-get install -y --no-install-recommends \
 COPY --from=build /src/native/build/dynolog_tpu_daemon /usr/local/bin/
 COPY --from=build /src/native/build/dyno /usr/local/bin/
 COPY dynolog_tpu/ /usr/lib/python3/dist-packages/dynolog_tpu/
+# The PyTorch port: no torch in the image, so it serves the fleet tools
+COPY dynolog_tpu_torch/ /usr/lib/python3/dist-packages/dynolog_tpu_torch/
 # RPC control plane (dyno CLI) + Prometheus exposer.
 EXPOSE 1778 8081
 ENTRYPOINT ["/usr/local/bin/dynolog_tpu_daemon"]

@@ -68,8 +68,19 @@ without the final line:
              flagship step under the client shim, with its NCCL kernels
              counted. `python3 chip_smoke.py --parallel-only` runs the
              build, the daemon and this phase alone (the four-card run).
+  packaged   the installed port: scripts/make_deb.sh on the binaries
+             built above, extracted with dpkg-deb -x; the packaged
+             daemon, a worker run from a temp dir with only the extracted
+             dist-packages on PYTHONPATH (JAX refused, the port's
+             __file__ under the extracted root) training the flagship
+             step under enable() and step(), and the packaged `dyno
+             gputrace --duration_ms 500` against it, held to the
+             gputrace checks; one line with the deb's name and bytes, the
+             port files staged, the trace's kernels and its wall time.
+             Without dpkg-deb, or with a build outside native/build, it
+             prints `packaged: skipped (<the missing tool>)` instead.
   bench      `python -m dynolog_tpu_torch.bench --quick` in a subprocess
-             against the binaries built above, within 240 s: exit code 0,
+             against the binaries built above, within 420 s: exit code 0,
              a last line that parses, platform "gpu:...", a number under
              every key the bench requires, and every fleet outcome true
              (capture windows intersect, the straggler flagged by the
@@ -94,6 +105,7 @@ import logging
 import math
 import os
 import pathlib
+import shutil
 import signal
 import statistics
 import subprocess
@@ -176,6 +188,55 @@ PARALLEL_TIMEOUT_S = 300
 # flagship, the JAX MoE/pipeline tests' 2e-2 for the others.
 PARALLEL_REL = {"flagship": 5e-3, "moe": 2e-2, "pipe": 2e-2}
 BENCH_TIMEOUT_S = 420
+PACKAGED_JOB = "chip_smoke_packaged"
+PACKAGED_DIST = "usr/lib/python3/dist-packages"
+
+# The packaged phase's worker, run as `python -c PACKAGED_WORKER` from a
+# temp dir with only the extracted dist-packages on PYTHONPATH (not this
+# script: its directory would put the repo's copy first on sys.path). It
+# refuses JAX, reports where the port came from, and trains the flagship
+# step on cuda:0 under enable() (job id from $DYNOLOG_TPU_JOB_ID),
+# calling step() every iteration, until SIGTERM.
+PACKAGED_WORKER = """\
+import importlib.abc, json, os, signal, sys, threading
+
+
+class _Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "dynolog_tpu"):
+            raise ImportError(name + " is refused here")
+
+
+sys.meta_path.insert(0, _Refuse())
+import dynolog_tpu_torch
+import torch
+from dynolog_tpu_torch.bench import BATCH, FLAGSHIP, SEQ
+from dynolog_tpu_torch.client import enable
+from dynolog_tpu_torch.models.train import make_train_step
+
+stop = threading.Event()
+signal.signal(signal.SIGTERM, lambda *_: stop.set())
+_, _, step_fn = make_train_step(
+    FLAGSHIP, device="cuda", generator=torch.Generator().manual_seed(0))
+tokens = torch.randint(0, FLAGSHIP.vocab_size, (BATCH, SEQ),
+                       generator=torch.Generator().manual_seed(1)).cuda()
+client = enable(poll_interval_s=0.5)
+losses = []
+try:
+    while not stop.is_set():
+        losses.append(float(step_fn(tokens)))
+        client.step()
+        if len(losses) == 1:
+            print(json.dumps({"ready": os.getpid(),
+                              "tid": threading.get_native_id(),
+                              "file": dynolog_tpu_torch.__file__}),
+                  flush=True)
+finally:
+    client.stop()
+print(json.dumps({"done": os.getpid(), "steps": len(losses),
+                  "first_loss": losses[0], "last_loss": losses[-1]}),
+      flush=True)
+"""
 
 
 def measure_overhead(step_fn, make_batch, tag):
@@ -249,7 +310,7 @@ def check_trace(log_dir, train_tid, label):
           f"events={len(events)} kernels={kernels} "
           f"aten_on_train_thread={aten_train} streamed=identical "
           f"manifest=ok", flush=True)
-    return len(raw)
+    return len(raw), kernels
 
 
 def parity_check(tag):
@@ -572,14 +633,17 @@ def fleet_worker() -> int:
 
 
 class FleetWorker:
-    """A --fleet-worker child and the JSON lines it printed."""
+    """A worker child (this script with --fleet-worker, registered to
+    the daemon ``socket_name`` names, unless ``argv`` says otherwise)
+    and the JSON lines it printed."""
 
-    def __init__(self, socket_name):
-        self.proc = subprocess.Popen(
-            [sys.executable, str(pathlib.Path(__file__).resolve()),
-             "--fleet-worker"],
-            env={**os.environ, "DYNOLOG_TPU_SOCKET": socket_name},
-            stdout=subprocess.PIPE, text=True)
+    def __init__(self, socket_name=None, argv=None, **popen):
+        if argv is None:
+            argv = [sys.executable, str(pathlib.Path(__file__).resolve()),
+                    "--fleet-worker"]
+            popen["env"] = {**os.environ, "DYNOLOG_TPU_SOCKET": socket_name}
+        self.proc = subprocess.Popen(argv, stdout=subprocess.PIPE,
+                                     text=True, **popen)
         self.lines: list[dict] = []
         threading.Thread(target=self._read, daemon=True).start()
 
@@ -747,6 +811,82 @@ def fleet_phase(daemon_bin, tag):
               f"workers on one card, loss {done['first_loss']:.4f} -> "
               f"{done['last_loss']:.4f}", flush=True)
     print(f"fleet: phase took {time.monotonic() - t_phase:.1f} s", flush=True)
+
+
+def packaged_phase(daemon_bin, tag):
+    """The installed port: scripts/make_deb.sh on the binaries built
+    above, extracted with dpkg-deb -x; the packaged daemon, a worker
+    that imports the port from the extracted tree alone and trains the
+    flagship step under enable(), and the packaged `dyno gputrace`
+    against it, the artifact held to check_trace. Without dpkg-deb, or
+    with a build outside native/build (where make_deb.sh takes the
+    binaries from), it prints a skip line naming the missing tool."""
+    t_phase = time.monotonic()
+    if shutil.which("dpkg-deb") is None:
+        print("packaged: skipped (dpkg-deb)", flush=True)
+        return
+    if daemon_bin.parent != REPO / "native" / "build":
+        print("packaged: skipped (cmake/ninja: the build is in "
+              f"{daemon_bin.parent.relative_to(REPO)})", flush=True)
+        return
+    out_dir = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_deb_"))
+    made = subprocess.run([str(REPO / "scripts" / "make_deb.sh"),
+                           str(out_dir)], capture_output=True, text=True,
+                          timeout=120)
+    check(made.returncode == 0,
+          f"packaged: make_deb.sh exit {made.returncode}: {made.stderr}")
+    debs = list(out_dir.glob("*.deb"))
+    check(len(debs) == 1, f"packaged: debs {debs}")
+    deb_name, deb_bytes = debs[0].name, debs[0].stat().st_size
+    root = out_dir / "rootfs"
+    subprocess.run(["dpkg-deb", "-x", str(debs[0]), str(root)], check=True,
+                   timeout=60)
+    staged = sum(1 for p in (root / PACKAGED_DIST / "dynolog_tpu_torch")
+                 .rglob("*") if p.is_file())
+    bin_dir = root / "usr" / "local" / "bin"
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(DYNOLOG_TPU_SOCKET_DIR=tempfile.mkdtemp(prefix="dtpk"),
+               DYNOLOG_TPU_JOB_ID=PACKAGED_JOB,
+               PYTHONPATH=str(root / PACKAGED_DIST))
+    daemon, port = start_daemon(bin_dir / "dynolog_tpu_daemon",
+                                "--trace_stream_max_mb", "1024", env=env)
+    threading.Thread(target=daemon.stderr.read, daemon=True).start()
+    worker = None
+    try:
+        worker = FleetWorker(
+            argv=[sys.executable, "-c", PACKAGED_WORKER],
+            cwd=tempfile.mkdtemp(prefix="chip_smoke_cwd_"), env=env)
+        first = wait_for(lambda: worker.get("ready"), 180, "packaged worker")
+        check(first["file"].startswith(str(root) + os.sep),
+              f"packaged worker imported {first['file']}")
+        rpc = DynoClient(port=port)
+        wait_for(lambda: any(
+            p["pid"] == first["ready"] for p in rpc.trace_registry()
+            .get("jobs", {}).get(PACKAGED_JOB, [])), 30,
+            "packaged client registration")
+        log_dir = tempfile.mkdtemp(prefix="chip_smoke_packaged_")
+        t0 = time.monotonic()
+        trigger_gputrace(bin_dir / "dyno", port, PACKAGED_JOB, log_dir,
+                         TRACE_MS)
+        wait_for(lambda: glob.glob(os.path.join(
+            log_dir, "**", "dynolog_manifest.json"), recursive=True), 60,
+            "packaged capture")
+        trace_s = time.monotonic() - t0
+        _, kernels = check_trace(log_dir, first["tid"], "packaged")
+    finally:
+        if worker is not None:
+            worker.stop()
+        stop_daemon(daemon)
+        shutil.rmtree(out_dir, ignore_errors=True)
+    done = wait_for(lambda: worker.get("done"), 10, "packaged worker's end")
+    check(math.isfinite(done["last_loss"]),
+          f"packaged worker ended with {worker.lines}")
+    print(f"packaged [{tag}] {deb_name} bytes={deb_bytes} "
+          f"port_files_staged={staged}; the packaged daemon, dyno and "
+          f"port traced the flagship step ({done['steps']} steps under "
+          f"enable()): {TRACE_MS} ms capture, kernels={kernels}, "
+          f"dyno gputrace to manifest {trace_s:.2f} s; phase took "
+          f"{time.monotonic() - t_phase:.1f} s", flush=True)
 
 
 def measure_ring(step_fn, make_batch, tag):
@@ -1432,7 +1572,8 @@ def main() -> int:
         for i in range(LATENCY_TRIALS):
             log_dir = os.path.join(trace_root, f"latency_{i}")
             t_rpc, t = run_capture(client, trainer, arm(log_dir), log_dir)
-            sizes.append(check_trace(log_dir, trainer.tid, f"latency_{i}"))
+            sizes.append(
+                check_trace(log_dir, trainer.tid, f"latency_{i}")[0])
             row = trace_breakdown(t_rpc, t)
             check(set(row) == set(BREAKDOWN),
                   f"latency_{i}: trace_timing lacks stamps: {t}")
@@ -1468,6 +1609,7 @@ def main() -> int:
         stop_daemon(daemon)
 
     fleet_phase(daemon_bin, tag)
+    packaged_phase(daemon_bin, tag)
     bench_phase(daemon_bin, dyno_bin, tag)
     return finish()
 

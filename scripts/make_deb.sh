@@ -1,6 +1,7 @@
 #!/usr/bin/env bash
 # Builds an installable .deb: daemon + dyno CLI + systemd unit +
-# logrotate + flagfile + the Python client/fleet package.
+# logrotate + flagfile + the Python client/fleet packages (JAX and
+# PyTorch).
 # (reference: scripts/debian/{control,make_deb.sh})
 #
 # Usage: scripts/make_deb.sh [outdir]   (default: dist/)
@@ -29,11 +30,14 @@ install -D -m644 scripts/dynolog-tpu.logrotate \
 install -D -m644 scripts/dynolog_tpu.flags \
     "$STAGE/$PKG/etc/dynolog_tpu.flags"
 
-# Python client + fleet package, importable system-wide.
-PYDEST="$STAGE/$PKG/usr/lib/python3/dist-packages/dynolog_tpu"
-mkdir -p "$PYDEST"
-cp -r dynolog_tpu/* "$PYDEST/"
-find "$PYDEST" -name __pycache__ -type d -exec rm -rf {} + 2>/dev/null || true
+# The Python client + fleet packages, importable system-wide: the JAX
+# package and its PyTorch port (torch comes from the job's environment).
+PYDIR="$STAGE/$PKG/usr/lib/python3/dist-packages"
+for pkg in dynolog_tpu dynolog_tpu_torch; do
+    mkdir -p "$PYDIR/$pkg"
+    cp -r "$pkg"/* "$PYDIR/$pkg/"
+done
+find "$PYDIR" -name __pycache__ -type d -exec rm -rf {} + 2>/dev/null || true
 
 mkdir -p "$STAGE/$PKG/DEBIAN"
 cat > "$STAGE/$PKG/DEBIAN/control" <<EOF
@@ -47,8 +51,9 @@ Depends: libc6, libstdc++6, libgcc-s1
 Recommends: python3
 Description: Always-on TPU-VM host monitoring daemon and trace CLI
  Telemetry daemon (kernel/procfs, CPU PMU, per-chip TPU metrics),
- on-demand XPlane trace rendezvous for JAX processes, dyno CLI, and the
- Python client/fleet package.
+ on-demand trace rendezvous for JAX and PyTorch processes, dyno CLI, and
+ the Python client/fleet packages (dynolog_tpu for JAX, dynolog_tpu_torch
+ for PyTorch; torch comes from the training environment).
 EOF
 cat > "$STAGE/$PKG/DEBIAN/conffiles" <<EOF
 /etc/dynolog_tpu.flags

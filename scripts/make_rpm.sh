@@ -36,7 +36,7 @@ install -D -m644 scripts/dynolog-tpu.logrotate \
 # edits on upgrade (the conffile analog).
 install -D -m644 scripts/dynolog_tpu.flags "$ROOT/etc/dynolog_tpu.flags"
 
-# Python client + fleet package. Fedora/RHEL put third-party packages in
+# Python client + fleet packages (JAX and its PyTorch port). Fedora/RHEL put third-party packages in
 # the interpreter's VERSIONED purelib (/usr/lib/python3.X/site-packages)
 # — there is no unversioned path every interpreter searches, so a build
 # host without python3 cannot produce an importable package: fail hard
@@ -46,8 +46,10 @@ PYDIR=$(python3 -c \
   echo "make_rpm.sh: python3 required to locate site-packages" >&2
   exit 2
 }
-mkdir -p "$ROOT$PYDIR/dynolog_tpu"
-cp -r dynolog_tpu/* "$ROOT$PYDIR/dynolog_tpu/"
+for pkg in dynolog_tpu dynolog_tpu_torch; do
+    mkdir -p "$ROOT$PYDIR/$pkg"
+    cp -r "$pkg"/* "$ROOT$PYDIR/$pkg/"
+done
 find "$ROOT$PYDIR" -name __pycache__ -type d -exec rm -rf {} + \
     2>/dev/null || true
 
