@@ -28,7 +28,9 @@ without the final line:
              thread's aten:: ops, the manifest
   iteration  a 5-iteration capture armed over RPC, same checks
   latency    3 traced trials split into rpc->config, config->start,
-             start->stop, stop->artifact
+             start->stop, stop->artifact; then no torch.profiler session
+             of the five captures may be alive (one gc.get_objects()
+             scan, no collection), printed with each trial's stop call
   parity     the tiny model in float32 (TF32 off) on the GPU against the
              same weights on the CPU, max abs <= 1e-4
   control    the shim's control plane against a daemon of its own
@@ -56,7 +58,9 @@ without the final line:
              injected anomaly, the ring's export beside the forward
              capture, the merged report's metadata.retro and a decoded
              window's CUDA kernels; then ms/step with the ring on and off
-             in rotating windows. A disabled or empty ring fails it.
+             in rotating windows. A disabled or empty ring fails it, and
+             so does more than one torch.profiler session alive after it
+             (a running ring window at most)
   parallel   the parallel workloads over NCCL, one rank per visible card
              (NCCL refuses two ranks on one card): the flagship step with
              ring attention on mesh_shape(n), MoeConfig() on
@@ -98,6 +102,7 @@ from __future__ import annotations
 
 import dataclasses
 import faulthandler
+import gc
 import glob
 import hashlib
 import json
@@ -271,6 +276,15 @@ def measure_overhead(step_fn, make_batch, tag):
               f"steps_per_window={steps} "
               f"overhead={100 * (m - m_off) / m_off:+.3f}% "
               f"slower_than_off_in={slower}/{OVERHEAD_ROUNDS}", flush=True)
+
+
+def live_sessions() -> int:
+    """torch.profiler sessions alive in this process, counted in one scan
+    of the collector's tracked objects (a scan collects nothing). The
+    shim ends each capture's and ring window's session when it retires,
+    so only a running one may be left."""
+    from torch.profiler import profile
+    return sum(1 for o in gc.get_objects() if type(o) is profile)
 
 
 def find_traces(log_dir):
@@ -1588,6 +1602,12 @@ def main() -> int:
                   f"window_ms={TRACE_MS}", flush=True)
         print(f"artifact [{tag}] pt.trace.json bytes median="
               f"{int(statistics.median(sizes))} trials={sizes}", flush=True)
+        live = live_sessions()
+        print(f"sessions [{tag}] after {LATENCY_TRIALS + 2} captures: "
+              f"{live} torch.profiler.profile alive; stop_call trials_ms="
+              f"{[round(x, 3) for x in phases['stop_call']]}", flush=True)
+        check(live == 0, f"{live} retired captures' profiler sessions "
+              "still alive")
 
         trainer.stop()
         losses = trainer.losses
@@ -1602,6 +1622,11 @@ def main() -> int:
         control_phase(daemon_bin, dyno_bin, step_fn, make_batch, tag,
                       max(phases["start_to_stop"]) - TRACE_MS)
         retro_phase(daemon_bin, step_fn, make_batch, tag)
+        live = live_sessions()
+        print(f"sessions [{tag}] after the control and retro phases: "
+              f"{live} torch.profiler.profile alive (at most a running "
+              "ring window)", flush=True)
+        check(live <= 1, f"{live} retired profiler sessions still alive")
         parallel_phase(rpc, dyno_bin, port, tag)
     finally:
         if trainer is not None:

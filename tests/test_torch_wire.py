@@ -200,7 +200,8 @@ _PORT_SOURCES = sorted(
     str(p.relative_to(REPO))
     for p in [*(REPO / "dynolog_tpu_torch").rglob("*.py"),
               REPO / "chip_smoke.py",
-              REPO / "scripts" / "torch_retro_design.py"])
+              REPO / "scripts" / "torch_retro_design.py",
+              REPO / "scripts" / "stop_call_probe.py"])
 
 
 def _banned_imports(source: str, filename: str) -> list[str]:
